@@ -1,9 +1,9 @@
-"""flowgnn_tpu — a TPU-native GNN message-passing inference framework.
+"""flowgnn_tpu — a GNN message-passing inference framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of
+A JAX/XLA implementation of the capabilities of
 sharc-lab/FlowGNN (the Vitis HLS FPGA dataflow accelerator): batched inference
 for GIN, GIN-VN, GCN, GAT, PNA and DGN over OGB molecular graphs, validated
-numerically against the reference weight binaries.
+against independent f64 NumPy oracles.
 """
 
 __version__ = "0.1.0"

@@ -1,23 +1,19 @@
-"""Sustained host-application benchmark (VERDICT r4 #4).
+"""Sustained host-application benchmark.
 
 The headline device protocol (bench.py) keeps packed streams
-device-resident and amortizes per-dispatch cost over reps — the analog of
-the reference's device-side XRT "Kernel Execution" metric. The reference,
-however, also pays its graph LOADING inside every timed pass
-(load_graph's 2-pass CSR build runs in-kernel per enqueue,
-GIN/src/load_inputs.cc:87-172 called from GIN_compute.cc:66-70), hidden
-behind the dataflow overlap. This benchmark measures the matching
+device-resident — the analog of the reference's device-side XRT "Kernel
+Execution" metric. The reference, however, also pays its graph LOADING
+inside every timed pass (load_graph's 2-pass CSR build runs in-kernel per
+enqueue, GIN/src/load_inputs.cc:87-172 called from GIN_compute.cc:66-70),
+hidden behind the dataflow overlap. This benchmark measures the matching
 END-TO-END capability: a sustained stream through runtime/stream.py where
-every bucket is packed on the host (window-aligned pack + production
-kernel layout), transferred, and executed — sequentially (``run``) and
-with the double-buffered pipeline (``run_pipelined``: pack bucket i+1 in
-a worker thread while the device runs bucket i, ``depth`` dispatches in
-flight).
+every bucket is packed on the host, transferred, and executed —
+sequentially (``run``) and with the double-buffered pipeline
+(``run_pipelined``: pack bucket i+1 in a worker thread while the device
+runs bucket i, ``depth`` dispatches in flight).
 
 Run: ``python -m flowgnn_tpu.bench.host_app [--model gin] [--graphs N]``.
-One JSON line: sustained µs/graph for both modes + the relay-floor share
-(the per-dispatch RTT × bucket count ÷ wall time — the part no host
-pipeline can hide below one dispatch per bucket).
+One JSON line: sustained µs/graph for both modes, with the device it ran on.
 """
 
 from __future__ import annotations
@@ -42,12 +38,15 @@ def main() -> None:
     ap.add_argument("--chain", type=int, default=4)
     ap.add_argument("--workers", type=int, default=3)
     ap.add_argument("--trials", type=int, default=3)
+    ap.add_argument("--reference", default=None, metavar="DIR",
+                    help="load the reference weight binaries from DIR")
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="allow a run on the CPU (results name the CPU)")
     args = ap.parse_args()
 
-    import jax
+    from ..runtime.compile_cache import configure_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    configure_compile_cache()
 
     import numpy as np
 
@@ -55,10 +54,11 @@ def main() -> None:
     from ..core.synthetic import synthetic_molhiv
     from ..models import registry
     from ..runtime.stream import InferenceStream
-    from .protocol import dispatch_floor
+    from .device import card_info, require_gpu
 
+    device = require_gpu(args.cpu_rehearsal)
     spec = registry.get(args.model)
-    params = spec.loader(f"/root/reference/{spec.reference_dir}")
+    params = registry.load_params(args.model, reference=args.reference)
     # Distinct second set (perturbed copy) so the flip is real work.
     sets = [params] + [
         {k: v * (1.0 + 0.01 * i) if np.issubdtype(
@@ -81,24 +81,16 @@ def main() -> None:
     items = [(g, (i // args.flip) % args.sets) for i, g in enumerate(graphs)]
 
     # Warm-up (excluded like the reference's one-time bitstream
-    # programming): (a) a pin PREPASS over every bucket so the slot
-    # layouts' stream-wide static pins are final before anything
-    # compiles; (b) explicit compilation of every chain length 1..chain
-    # at the steady-state signature — adaptive chaining's group sizes
-    # are data/timing-dependent, and a fresh (length, signature) trace
-    # inside a timed trial would charge minutes of compile to the wall.
-    buckets_list = list(stream._bucketize(items))
-    for bkt, _sid in buckets_list:
-        stream._make_batch(bkt)  # pins merge to stream maxima
-    b0, _n0 = stream._make_batch(buckets_list[0][0])
+    # programming): compile every chain length 1..chain at the bucket
+    # signature — adaptive chaining's group sizes are data/timing-
+    # dependent, and a fresh trace inside a timed trial would charge its
+    # compile to the wall.
+    b0, _n0 = stream._make_batch(next(stream._bucketize(items))[0])
     for ln in range(1, args.chain + 1):
         np.asarray(
             stream._fwd_chain(stream.params[0], tuple([b0] * ln))[0]
         )
     np.asarray(stream._fwd(stream.params[0], b0))
-    warm = items[: min(args.graph_cap, len(items))] + items[-2:]
-    _ = list(stream.run_pipelined(warm, depth=args.depth, chain=args.chain,
-                                  workers=args.workers))
 
     def timed(fn):
         best = float("inf")
@@ -118,11 +110,9 @@ def main() -> None:
     assert seq_out.shape[0] == args.graphs == pipe_out.shape[0]
     np.testing.assert_allclose(seq_out, pipe_out, rtol=1e-5, atol=1e-5)
 
-    floor = dispatch_floor(BF16)
     u50_us = {"gin": 49.5, "gin-vn": 56.2, "gcn": 41.9, "gat": 17.6,
               "pna": 57.4, "dgn": 32.9}[args.model]  # molhiv device-only
     n_buckets = sum(1 for _ in stream._bucketize(items))
-    n_dispatches = stream.last_dispatches or n_buckets
     rec = {
         "metric": f"{args.model}_host_app_sustained_us_per_graph",
         "value": round(pipe_s / args.graphs * 1e6, 3),
@@ -130,21 +120,20 @@ def main() -> None:
         "sequential_us_per_graph": round(seq_s / args.graphs * 1e6, 3),
         "pipeline_speedup": round(seq_s / pipe_s, 3),
         "buckets": n_buckets,
-        "dispatch_floor_ms": round(floor * 1e3, 2),
-        "dispatches": n_dispatches,
-        "relay_floor_share": round(n_dispatches * floor / pipe_s, 3),
+        "dispatches": stream.last_dispatches,
         "u50_device_only_us": u50_us,
         "vs_u50_device_only": round(
             u50_us / (pipe_s / args.graphs * 1e6), 3
         ),
+        "device": device,
+        "card": card_info(),
     }
     print(json.dumps(rec))
     print(
         f"# {args.model}: sustained pipelined "
         f"{rec['value']} us/graph (sequential "
         f"{rec['sequential_us_per_graph']}, {n_buckets} buckets / "
-        f"{n_dispatches} dispatches, relay "
-        f"floor {rec['relay_floor_share'] * 100:.0f}% of wall)",
+        f"{rec['dispatches']} dispatches)",
         file=sys.stderr,
     )
 

@@ -1,13 +1,12 @@
 """Analytic cost models + roofline accounting per model family.
 
-The reference publishes only end-to-end kernel times (XRT summary CSVs); the
-TPU build's perf discipline adds a roofline view: for a packed bucket we
-count MXU FLOPs and HBM bytes analytically, derive the light-speed time on
-the chip, and report measured/ideal. BASELINE.md's target is the scatter
-(SpMM) stage at ≥70% of its roofline.
+The reference publishes only end-to-end kernel times (XRT summary CSVs);
+this adds a roofline view: for a packed stream we count matmul FLOPs and
+memory bytes analytically, derive the light-speed time on the device, and
+report ideal/measured.
 
-Chip peaks default to TPU v5e (the bench chip): 197 TFLOP/s bf16,
-~99 TFLOP/s f32 MXU, 819 GB/s HBM.
+Device peaks live in one table keyed by JAX's ``device_kind``. A device
+that is not in the table is an error, not a default.
 """
 
 from __future__ import annotations
@@ -17,40 +16,32 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class ChipSpec:
-    name: str = "tpu-v5e"
-    peak_bf16_flops: float = 197e12
-    peak_f32_flops: float = 99e12
-    hbm_gbps: float = 819e9
+    name: str
+    peak_bf16_flops: float
+    peak_f32_flops: float
+    hbm_bytes_per_s: float
+    source: str
 
 
-V5E = ChipSpec()
-
-# Shape-achievable MXU ceilings (fraction of nominal bf16 peak) for each
-# model's SpMM-stage one-hot matmul shape, measured on the chip by
-# ``python -m flowgnn_tpu.bench.matmul_shapes`` (pure chained matmuls at
-# exactly the stage shapes — see BASELINE.md "SpMM roofline target,
-# re-derived"). BASELINE.md's defended target is stage MXU utilization
-# ≥ 40% of THESE ceilings; bench.py divides spmm mxu_util by this value
-# so the driver artifact carries the defended ratio directly (VERDICT r4
-# #6). Keys match the stage benchmark's shapes: ELL models at their
-# (block, window); slot models at the per-slot [W, W] @ [W, 128] shape
-# measure_slot_stage drives.
-# Shape-achievable MXU ceilings (fraction of nominal bf16 peak), measured
-# by one round-5 ``bench.matmul_shapes --reps 1000`` session (floor share
-# ≤16%/row, best-of-3; /tmp-independent record in BENCH.md "shape
-# ceilings, round 5"). Keyed by the STAGE the spmm bench actually runs:
-# the slot stage's per-slot [W, W] @ [W, 128] shape depends only on the
-# window; the ELL stage's [block, W] @ [W, 128] on the model geometry.
-SLOT_STAGE_CEILINGS: dict[int, float] = {
-    256: 0.437,  # [256,256]@[256,128] — 86.1 TF/s
-    384: 0.690,  # [384,384]@[384,128] — 136.0 TF/s
-    512: 0.868,  # [512,512]@[512,128] — 171.0 TF/s
+# NVIDIA H100 SXM data sheet, dense rates without sparsity, at the full
+# 700 W power limit: 989 TFLOP/s bf16 (tensor cores), 67 TFLOP/s f32
+# outside the tensor cores, 3.35 TB/s HBM3.
+PEAKS: dict[str, ChipSpec] = {
+    "NVIDIA H100 80GB HBM3": ChipSpec(
+        "H100 SXM", 989e12, 67e12, 3.35e12,
+        "NVIDIA H100 Tensor Core GPU data sheet (SXM)",
+    ),
 }
-ELL_STAGE_CEILINGS: dict[str, dict[int, float]] = {
-    "gin": {384: 0.800},     # [896,384]@[384,128] — 157.5 TF/s
-    "gcn": {384: 0.800},     # same geometry as gin
-    "gin-vn": {256: 0.737},  # [640,256]@[256,128] — 145.1 TF/s
-}
+
+
+def peaks(device_kind: str) -> ChipSpec:
+    """Published peaks of ``device_kind``; KeyError for an unknown device."""
+    if device_kind not in PEAKS:
+        raise KeyError(
+            f"no peaks for device kind {device_kind!r}; add its data-sheet "
+            "row to bench/roofline.PEAKS"
+        )
+    return PEAKS[device_kind]
 
 
 @dataclasses.dataclass
@@ -58,9 +49,9 @@ class Cost:
     flops: float
     bytes: float
 
-    def light_speed_s(self, chip: ChipSpec = V5E, bf16: bool = True) -> float:
+    def light_speed_s(self, chip: ChipSpec, bf16: bool = True) -> float:
         peak = chip.peak_bf16_flops if bf16 else chip.peak_f32_flops
-        return max(self.flops / peak, self.bytes / chip.hbm_gbps)
+        return max(self.flops / peak, self.bytes / chip.hbm_bytes_per_s)
 
     def __add__(self, o: "Cost") -> "Cost":
         return Cost(self.flops + o.flops, self.bytes + o.bytes)
@@ -72,7 +63,7 @@ def _mm(n: int, k: int, m: int, b: int) -> Cost:
 
 
 def model_cost(name: str, num_nodes: int, num_edges: int, bytes_per_el: int = 2) -> Cost:
-    """Per-bucket forward cost. Dims/layers per SURVEY.md §2.5."""
+    """Per-stream forward cost. Dims/layers per SURVEY.md §2.5."""
     n, e, b = num_nodes, num_edges, bytes_per_el
     if name in ("gin", "gin-vn"):
         c = Cost(0, 0)
@@ -108,19 +99,8 @@ def model_cost(name: str, num_nodes: int, num_edges: int, bytes_per_el: int = 2)
     raise KeyError(name)
 
 
-def spmm_cost(
-    padded_lanes: int, window: int, dim: int, bytes_per_el: int = 2
-) -> Cost:
-    """Windowed one-hot scatter cost (ops/pallas/spmm.py): one
-    [block,window]ᵀ@[block,dim] MXU matmul per block."""
-    return Cost(
-        2.0 * padded_lanes * window * dim,
-        bytes_per_el * padded_lanes * dim,
-    )
-
-
 def report(name: str, num_nodes: int, num_edges: int, measured_s: float,
-           bf16: bool = True, chip: ChipSpec = V5E) -> dict:
+           chip: ChipSpec, bf16: bool = True) -> dict:
     cost = model_cost(name, num_nodes, num_edges, 2 if bf16 else 4)
     ideal = cost.light_speed_s(chip, bf16)
     return {

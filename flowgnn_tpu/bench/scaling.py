@@ -1,9 +1,9 @@
 """Multi-device scaling benchmark: edges/s at 1..K devices.
 
-The reference is single-device; BASELINE.md's scaling target for the TPU
-build is ≥80% edges/s efficiency from 1 chip to N. On real multi-chip slices
-this measures ICI-backed scaling; on the 8-way host-platform CPU mesh it
-exercises the identical sharded program (the fake-backend tier).
+The reference is single-device. On several accelerators of one host this
+measures scaling over the device interconnect; on the 8-way host-platform
+CPU mesh it exercises the identical sharded program (the fake-backend
+tier), whose times say nothing about a device.
 
 Two axes, swept independently:
 
@@ -12,22 +12,23 @@ Two axes, swept independently:
     ``"halo"`` (default) uses the node-shard + boundary-row-all_to_all
     layout (parallel/halo.py); ``"psum"`` the round-1 replicated-node
     full-array-psum path, kept for comparison. The report includes the
-    per-layer ICI bytes each strategy moves.
+    per-layer interconnect bytes each strategy moves.
 """
 
 from __future__ import annotations
 
+import os
 import time
-
-import numpy as np
 
 
 def _measure(fn, args, trials):
-    np.asarray(fn(*args))  # compile + completion via readback
+    import jax
+
+    jax.block_until_ready(fn(*args))  # compile + warm up
     best = float("inf")
     for _ in range(trials):
         t0 = time.perf_counter()
-        np.asarray(fn(*args))
+        jax.block_until_ready(fn(*args))
         best = min(best, time.perf_counter() - t0)
     return best
 
@@ -37,11 +38,10 @@ def run_scaling(
     graphs_per_device: int = 128,
     device_counts=(1, 2, 4, 8),
     trials: int = 3,
-    reference_root: str = "/root/reference",
+    reference: str | None = None,
     caps=(4096, 12288, 256),
     axis: str = "data",
     strategy: str = "halo",
-    blocked: str | None = None,
     scaling: str = "strong",
 ) -> list[dict]:
     """``scaling`` (edge axis only): "strong" shards ONE fixed batch across
@@ -49,15 +49,8 @@ def run_scaling(
     construction); "weak" grows the batch with k (graphs_per_device·k
     graphs, capacities ∝ k) so every chip always holds the same shard size
     — the sweep that separates fixed-batch under-utilization from genuine
-    halo overhead growth.
-
-    ``blocked`` (halo strategy only): "local_ell" / "local_slots" packs
-    window-aligned and attaches the per-shard graph-local layouts, so the
-    sharded program runs the whole-model megakernels + in-kernel finalize
-    per shard (one pallas_call; pool partials complete with one
-    all_gather). On the fake CPU backend the kernels run in interpret mode
-    — absolute times are interpreter-bound; use the rows for layout/
-    collective accounting, not kernel speed."""
+    halo overhead growth. Weights are seeded unless ``reference`` names the
+    reference tree."""
     import jax
 
     from ..core.graphs import pack_graphs
@@ -75,10 +68,7 @@ def run_scaling(
     from ..parallel.mesh import make_mesh
 
     spec = registry.get(model)
-    import os
-
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
-    jp = prepare_params(params, FLOAT32)
+    jp = prepare_params(registry.load_params(model, reference=reference), FLOAT32)
     total = graphs_per_device * max(device_counts)
     graphs = registry.apply_transforms(
         spec, synthetic_molhiv(total, seed=0, with_eigen=spec.needs_eigen)
@@ -115,42 +105,28 @@ def run_scaling(
                 graph_capacity=caps[2] * scale,
                 with_eigen=spec.needs_eigen,
             )
-            if blocked and strategy == "halo":
-                from ..core.graphs import pack_graphs_aligned
-                from ..models.base import PALLAS_ELL_WINDOW
-
-                packed = pack_graphs_aligned(
-                    graphs[: graphs_per_device * scale],
-                    window=PALLAS_ELL_WINDOW, **pack_kw,
-                )
-            else:
-                packed = pack_graphs(
-                    graphs[: graphs_per_device * scale],
-                    **pack_kw,
-                )
+            packed = pack_graphs(graphs[: graphs_per_device * scale], **pack_kw)
             total_edges = int(packed.n_edge[:-1].sum())
             mesh = make_mesh(data=1, edge=k)
             dim = 100 if model != "pna" else 80
             if strategy == "halo":
                 stacked = stack_halo_buckets(
-                    [build_halo_batch(
-                        packed, k=k, edge_slack=2.0 * k, blocked=blocked,
-                    )]
+                    [build_halo_batch(packed, k=k, edge_slack=2.0 * k)]
                 )
                 fwd = halo_forward(spec.forward, mesh, FLOAT32)
                 shape = halo_shape(
                     packed.node_capacity, packed.edge_capacity, k
                 )
-                ici = halo_bytes_per_layer(shape, dim)
+                link = halo_bytes_per_layer(shape, dim)
             else:  # replicated-node psum path (round-1 fallback)
                 stacked = stack_buckets([packed])
                 fwd = sharded_forward(spec.forward, mesh, FLOAT32)
-                ici = psum_bytes_per_layer(packed.node_capacity, dim)
+                link = psum_bytes_per_layer(packed.node_capacity, dim)
             best = _measure(fwd, (jp, stacked), trials)
             row = {
                 "devices": k, "axis": "edge", "strategy": strategy,
                 "scaling": scaling,
-                "ici_bytes_per_layer": 0 if k == 1 else ici,
+                "interconnect_bytes_per_layer": 0 if k == 1 else link,
             }
         else:
             raise ValueError(f"unknown axis {axis!r}")

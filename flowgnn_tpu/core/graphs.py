@@ -1,9 +1,9 @@
 """Graph containers: single graphs, host-side transforms, packed static batches.
 
 The reference streams one variable-size graph at a time through a dataflow
-pipeline (GIN/src/GIN_compute.cc:44-98). A TPU wants the opposite: many small
-graphs packed into one statically-shaped batch so that every op (gather,
-segment-sum, update matmul) is a large dense array op. `PackedGraphs` is that
+pipeline (GIN/src/GIN_compute.cc:44-98). An accelerator wants the opposite:
+many small graphs packed into one statically-shaped batch so that every op
+(gather, segment-sum, update matmul) is a large dense array op. `PackedGraphs` is that
 container — the jraph-style flat packing:
 
   * all nodes of all graphs concatenated into one axis of capacity
@@ -107,10 +107,9 @@ def add_virtual_node_analytic(g: Graph) -> Graph:
       m[vn]      = Σ_{real v} relu(h_v + e0)   (a per-graph pooled sum)
       m[real v] += relu(h_vn + e0)             (a per-graph broadcast)
 
-    which the TPU path computes with the in-kernel pool one-hot (megakernel)
-    or a segment-sum (fallbacks) instead of scattering 2N edges — the VN hub
-    is the one in-degree that grows with graph size (it alone forced the
-    hep10k spill path). The appended node is flagged in ``node_vn`` and the
+    which models/gin.py computes with a per-graph segment-sum instead of
+    scattering 2N edges — the VN hub is the one in-degree that grows with
+    graph size. The appended node is flagged in ``node_vn`` and the
     flag rides the packed batch; models/gin.py dispatches on it.
     """
     n = g.num_nodes
@@ -272,92 +271,6 @@ def pack_graphs(
     )
 
 
-def pack_graphs_aligned(
-    graphs: Sequence[Graph],
-    node_capacity: int,
-    edge_capacity: int,
-    graph_capacity: int,
-    window: int = 128,
-    with_eigen: bool = False,
-) -> PackedGraphs:
-    """Window-aligned packing: no graph smaller than ``window`` straddles a
-    ``window``-node boundary.
-
-    This is the locality contract behind the graph-local fused kernel
-    (ops/pallas/local_layer.py): when a window contains only whole graphs,
-    every one of their edges has BOTH endpoints inside the window, so the
-    per-edge gather and scatter both become in-VMEM one-hot matmuls — the
-    TPU equivalent of the reference keeping a whole graph's state in BRAM
-    (GIN/src/globals.cc). Graphs larger than ``window`` still pack
-    contiguously; their window-crossing edges take the (cheap, rare) spill
-    path. Gap slots between graphs are ordinary pad nodes owned by the pad
-    graph.
-    """
-    total_nodes = sum(g.num_nodes for g in graphs)
-    if total_nodes > node_capacity:
-        raise ValueError(f"node capacity {node_capacity} < {total_nodes}")
-
-    # First pass: compute each graph's node offset with window alignment.
-    offsets = []
-    off = 0
-    for g in graphs:
-        n = g.num_nodes
-        if n <= window:
-            room = window - (off % window)
-            if n > room:
-                off += room  # advance to the next window boundary
-        if off + n > node_capacity:
-            raise ValueError("window alignment exceeded node capacity")
-        offsets.append(off)
-        off += n
-
-    total_edges = sum(g.num_edges for g in graphs)
-    if total_edges > edge_capacity:
-        raise ValueError(f"edge capacity {edge_capacity} < {total_edges}")
-    if len(graphs) > graph_capacity:
-        raise ValueError(f"graph capacity {graph_capacity} < {len(graphs)}")
-
-    node_feat = np.zeros((node_capacity + 1, NUM_ATOM_FEATURES), np.int32)
-    node_graph = np.full(node_capacity + 1, graph_capacity, np.int32)
-    senders = np.full(edge_capacity, node_capacity, np.int32)
-    receivers = np.full(edge_capacity, node_capacity, np.int32)
-    edge_attr = np.zeros((edge_capacity, NUM_BOND_FEATURES), np.int32)
-    n_node = np.zeros(graph_capacity + 1, np.int32)
-    n_edge = np.zeros(graph_capacity + 1, np.int32)
-    node_eigen = np.zeros((node_capacity + 1, 4), np.float32) if with_eigen else None
-    with_vn = any(g.node_vn is not None for g in graphs)
-    node_vn = np.zeros(node_capacity + 1, bool) if with_vn else None
-
-    edge_off = 0
-    used = 0
-    for i, (g, node_off) in enumerate(zip(graphs, offsets)):
-        n, e = g.num_nodes, g.num_edges
-        node_feat[node_off : node_off + n] = g.node_feat
-        node_graph[node_off : node_off + n] = i
-        if with_vn and g.node_vn is not None:
-            node_vn[node_off : node_off + n] = g.node_vn
-        senders[edge_off : edge_off + e] = g.edge_index[:, 0] + node_off
-        receivers[edge_off : edge_off + e] = g.edge_index[:, 1] + node_off
-        if g.edge_attr is not None:
-            edge_attr[edge_off : edge_off + e] = g.edge_attr
-        if with_eigen:
-            if g.node_eigen is None:
-                raise ValueError("with_eigen=True but graph has no node_eigen")
-            k = min(4, g.node_eigen.shape[1])
-            node_eigen[node_off : node_off + n, :k] = g.node_eigen[:, :k]
-        n_node[i] = n
-        n_edge[i] = e
-        edge_off += e
-        used = node_off + n
-
-    n_node[graph_capacity] = node_capacity + 1 - int(n_node[:graph_capacity].sum())
-    n_edge[graph_capacity] = edge_capacity - edge_off
-    return PackedGraphs(
-        node_feat, node_graph, senders, receivers, edge_attr, n_node, n_edge,
-        node_eigen, node_vn,
-    )
-
-
 def auto_edge_capacity(graphs: Sequence[Graph], node_capacity: int) -> int:
     """Edge capacity sized so ``node_capacity``-node buckets fit their
     edges (stream density × 1.15 headroom, 1024-aligned). A too-small
@@ -375,51 +288,32 @@ def pack_dataset(
     edge_capacity: int,
     graph_capacity: int,
     with_eigen: bool = False,
-    align_window: Optional[int] = None,
 ) -> Iterator[PackedGraphs]:
     """Greedy first-fit streaming packer: yields full buckets of fixed shape.
 
     This is the batching analog of the reference's whole-dataset single
     enqueue (GIN/src/host.cc:203-210): the dataset becomes a stream of
     identically-shaped buckets, so XLA compiles exactly once.
-    ``align_window`` switches to window-aligned placement (see
-    pack_graphs_aligned) and accounts for the alignment gaps while filling.
     """
-
-    def aligned_usage(cur: int, n: int) -> int:
-        if align_window and n <= align_window:
-            room = align_window - (cur % align_window)
-            if n > room:
-                cur += room
-        return cur + n
-
-    def flush(bucket):
-        if align_window:
-            return pack_graphs_aligned(
-                bucket, node_capacity, edge_capacity, graph_capacity,
-                align_window, with_eigen,
-            )
-        return pack_graphs(
-            bucket, node_capacity, edge_capacity, graph_capacity, with_eigen
-        )
-
     bucket: list[Graph] = []
     nodes = edges = 0
     for g in graphs:
-        new_nodes = aligned_usage(nodes, g.num_nodes)
         over = (
-            new_nodes > node_capacity
+            nodes + g.num_nodes > node_capacity
             or edges + g.num_edges > edge_capacity
             or len(bucket) >= graph_capacity
         )
         if over and bucket:
-            yield flush(bucket)
+            yield pack_graphs(
+                bucket, node_capacity, edge_capacity, graph_capacity, with_eigen
+            )
             bucket, nodes, edges = [], 0, 0
-            new_nodes = aligned_usage(0, g.num_nodes)
         if g.num_nodes > node_capacity or g.num_edges > edge_capacity:
             raise ValueError("graph larger than bucket capacity")
         bucket.append(g)
-        nodes = new_nodes
+        nodes += g.num_nodes
         edges += g.num_edges
     if bucket:
-        yield flush(bucket)
+        yield pack_graphs(
+            bucket, node_capacity, edge_capacity, graph_capacity, with_eigen
+        )

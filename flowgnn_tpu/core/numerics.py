@@ -9,7 +9,7 @@ overflow.
 
 Exact bit-for-bit replay of the FPGA would additionally require replaying the
 PE-interleaved accumulation order (dest mod 4 partitions, GIN/src/load_inputs.cc:127);
-a TPU segment-sum necessarily reorders low-bit rounding. The framework
+a parallel segment-sum necessarily reorders low-bit rounding. The framework
 therefore offers a tolerance ladder:
 
   * ``float`` mode (default): pure f32, validated against the independent
@@ -88,12 +88,16 @@ AP_FIXED_16_3 = FixedSpec(16, 3)
 class Precision:
     """Numerics policy threaded through every model.
 
-    ``compute_dtype`` is the dense-math dtype (f32, or bf16 for MXU-friendly
-    throughput runs); ``fixed`` enables the ap_fixed emulation ladder.
+    ``compute_dtype`` is the dense-math dtype (f32, or bf16 for
+    tensor-core throughput runs); ``fixed`` enables the ap_fixed emulation
+    ladder. f32/f64 dots run at full precision unless ``default_dots``
+    leaves them at the backend's default (TF32 on a GPU), which exists only
+    to put TF32's error on record (chip_smoke.py).
     """
 
     compute_dtype: jnp.dtype = jnp.float32
     fixed: Optional[FixedSpec] = None
+    default_dots: bool = False
 
     def q(self, x: jnp.ndarray) -> jnp.ndarray:
         """Quantize a stage-boundary activation (no-op in float mode)."""

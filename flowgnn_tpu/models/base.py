@@ -15,8 +15,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
-import ml_dtypes
 import numpy as np
 
 from ..core.features import ATOM_FEATURE_OFFSETS, BOND_FEATURE_OFFSETS
@@ -24,457 +24,9 @@ from ..core.graphs import PackedGraphs
 from ..core.numerics import Precision
 from ..ops.segment import segment_sum
 
-# Blocked-scatter layout constants (see core/blocking.py and
-# ops/pallas/spmm.py). window == block == 128 keeps the one-hot scatter
-# matmul on the MXU's native tile and lets the kernel infer the block size
-# from array shapes alone.
-PALLAS_WINDOW = 128   # dynamic-mapping paths (windowed scatter / local)
-PALLAS_BLOCK = 128
-# ELL static-grid local path (measured optimum on v5e — BENCH.md). K is
-# auto-sized per bucket from the edge-density distribution.
-PALLAS_ELL_WINDOW = 512
-PALLAS_ELL_BLOCK = 1536
-# Per-model (window, block) overrides — measured optima on v5e (BENCH.md
-# round-2 sweep). Models absent here use the global PALLAS_ELL_* defaults.
-# Drivers: molhiv density ≈3.2 lanes/node with self-loops (GAT) or the VN
-# star (GIN-VN) vs ≈1.7 plain — one block must hold a whole window's edges
-# (k=1) or the grid doubles; smaller windows then cut the one-hot matmul
-# FLOPs (∝ window) until per-step grid overhead takes over.
-ELL_GEOMETRY_DEFAULTS: dict[str, tuple[int, int]] = {
-    # Round-5 slot-wps re-sweep: W128/wps8 wins (see SLOT_WPS_DEFAULTS
-    # table); choose_window bumps window-exceeding streams (molpcba→256,
-    # hep10k→512).
-    "gin": (128, 384),
-    # Analytic VN: the star edges left the stream, so gin-vn's density is
-    # GIN's (the old (256,1152) optimum was tuned for the VN-star stream).
-    # Round-5 slot-wps re-sweep: W256/wps4 0.680 beats W384/wps2 0.697
-    # and W128/wps8 0.883 (the VN pool stage scales with window count).
-    "gin-vn": (256, 640),
-    "gcn": (128, 384),  # W128/wps8 (slot-wps re-sweep table)
-    # Round-5 re-sweep UNDER THE PAIRS KERNEL (two windows per grid step
-    # fully use the 128 lanes, so taller windows amortize better than the
-    # unpaired optimum W256): whole-dataset molhiv W384 0.659/0.660 vs
-    # W256 0.729/0.729 vs W512 0.797 µs/graph — W384 wins by 9.6%
-    # consistently (26.7x vs 24.1x). choose_window still bumps hep10k to
-    # (512, 2048).
-    "gat": (384, 1536),
-    # Round-5 slot-wps re-sweep: W128/wps8 0.347 (from W384/wps4 0.441).
-    "dgn": (128, 512),
-    # Round-5 slot-wps re-sweep: W128/wps8 0.482 (from W256/wps4 0.489).
-    "pna": (128, 384),
-}
-PALLAS_SLOTS = 8  # dest-major in-edge slots (PNA stats kernel)
-SPILL_SCATTER_WINDOW = 512  # scatter window of the kernelized spill tail
-# Windows per ELL grid step (k=1 layouts): >1 unrolls wps windows into one
-# Pallas step — wps× fewer grid steps paying dispatch overhead, wps×-taller
-# epilogue matmuls. Measured optima on v5e; FLOWGNN_ELL_WPS overrides.
-ELL_WPS_DEFAULTS: dict[str, int] = {}
 
-
-def choose_window(model: str, max_graph_nodes: int, default_w: int) -> int:
-    """Stream-aware window for the slot-layout models: when the largest
-    graph exceeds the tuned default window, bump to the smallest tuned
-    size that holds it (≤512) so nothing spills and the whole-model
-    megakernel stays engaged. Measured on hep10k (≤400-node graphs):
-    GAT 7.63→5.50, DGN 5.11→3.82 µs/graph at W512 vs spill-path W256.
-    GIN-VN bumps too (round 4: 7.21 at W384+spill vs 4.34 at W512
-    megakernel), and round 5 added GCN and finally GIN: under the SLOT
-    kernels with the wps batched-MLP lever, every edge-featured model's
-    W512 bump beats ELL + spill (GCN 3.03 then 2.58 vs 3.44; GIN 2.58
-    vs 3.35 interleaved — the wps=1 wash that kept GIN on ELL inverted
-    at wps=2, so the round-3 ELL precedent is fully retired)."""
-    if max_graph_nodes > default_w:
-        for w in (256, 384, 512):
-            if w >= default_w and w >= max_graph_nodes:
-                return w
-    return default_w
-
-
-def choose_geometry(model: str, max_graph_nodes: int) -> tuple[int, int]:
-    """(window, block) for a stream: the tuned per-model default, with the
-    window bumped by ``choose_window`` for the models that prefer keeping
-    the megakernel engaged over spilling — and the ELL lane capacity
-    (block) scaled with the window so one block still holds a whole
-    window's edges (k=1; a static k=2 grid would double every step)."""
-    gw, gb = ELL_GEOMETRY_DEFAULTS.get(
-        model, (PALLAS_ELL_WINDOW, PALLAS_ELL_BLOCK)
-    )
-    w = choose_window(model, max_graph_nodes, gw)
-    b = gb
-    if w != gw:
-        b = -(-(gb * w) // (gw * 128)) * 128
-    return w, b
-
-
-def ell_wps(model: str) -> int:
-    import os
-
-    env = os.environ.get("FLOWGNN_ELL_WPS")
-    if env:
-        return int(env)
-    return ELL_WPS_DEFAULTS.get(model, 1)
-
-
-POOL_GMAX = 64  # graph slots per window in the in-kernel pooling layout
-
-# Windows per grid step for the edge-featured slot megakernels (round 5):
-# the update MLP/conv batches over the step's wps windows as one
-# [wps·W, D] matmul, amortizing the MXU weight load (the slot
-# attribution's largest marginal stage). Measured optima on v5e, molhiv
-# whole-dataset: GIN wps2 0.569/87.1x (wps1 0.687, wps4 0.578); GCN wps4
-# 0.569/73.7x (wps1 0.713, wps2 0.593); GIN-VN wps2 0.697/80.7x
-# (wps1 0.787, wps4 0.720); DGN wps4 0.441/74.6x (wps1 0.507, wps2
-# 0.445); PNA wps4 0.489/117.4x (wps1 0.616, wps2 0.499).
-# FLOWGNN_SLOT_WPS overrides.
-# The wps lever RESHUFFLED the window optima downward (the update-matmul
-# M decouples from the window, so smaller windows' lower slot-gather
-# FLOPs win again); per-(model, window) optima measured on v5e
-# whole-dataset molhiv (µs/graph):
-#   GIN  W128/8 0.534 > W256/4 0.555 > W384/2 0.569 > W384/1 0.687
-#   GCN  W128/8 0.515 > W256/4 0.523 > W384/4 0.569 > W384/1 0.713
-#   GIN-VN W256/4 0.680 > W384/2 0.697 (W128/8 0.883 — its per-window
-#     VN pool stage scales with window count)
-#   PNA  W128/8 0.482 > W256/4 0.489 > W256/1 0.616 (W384/4 0.553)
-#   DGN  W128/8 0.347 > W256/4 0.377 > W384/4 0.441 (W128/16 0.360,
-#     W256/8 0.391)
-# W≥512 (the hep10k bump) caps at 2: per-step VMEM scales with wps·W and
-# GCN W512/wps4 blew the 16 MB scoped limit (18.04M); GCN W128/wps16
-# died the same way. FLOWGNN_SLOT_WPS overrides.
-# W512 entries: wps4 blows the 16 MB scoped-VMEM limit (GCN 18.04M) but
-# wps3 fits for the leaner GIN/GCN kernels and measured +6-7% on hep10k
-# (GIN 2.44/73.8x vs 2.58/69.7x; GCN 2.41/68.1x vs 2.58/63.5x); DGN
-# wps3 is a wash (2.164 vs 2.165) and PNA slightly worse (2.56 vs 2.52)
-# — their per-window slot stages dominate at W512.
-SLOT_WPS_DEFAULTS: dict[str, dict[int, int]] = {
-    "gin": {128: 8, 256: 4, 384: 2, 512: 3},
-    "gin-vn": {128: 8, 256: 4, 384: 2, 512: 2},
-    "gcn": {128: 8, 256: 4, 384: 4, 512: 3},
-    "pna": {128: 8, 256: 4, 384: 4, 512: 2},
-    "dgn": {128: 8, 256: 4, 384: 4, 512: 2},
-}
-
-
-def slot_wps(model: str, window: int = 384) -> int:
-    import os
-
-    env = os.environ.get("FLOWGNN_SLOT_WPS")
-    if env:
-        return int(env)  # explicit override bypasses the VMEM cap
-    d = SLOT_WPS_DEFAULTS.get(model, {})
-    if window in d:
-        return d[window]  # measured-safe per-model entries
-    w = max(1, min(8, 1024 // max(window, 1)))
-    if window >= 512:
-        w = min(w, 2)  # scoped-VMEM cap for un-measured geometries
-    return w
-
-
-def slot_prefix_caps(batch: dict, n_slots: int):
-    """Static per-slot prefix caps (degree-sorted layout) or None. The
-    caps ride in marker-array SHAPES so they survive the batch being a
-    jit argument (shapes are static; values would trace)."""
-    if "slot_pcap_0" not in batch:
-        return None
-    return tuple(
-        int(batch[f"slot_pcap_{k}"].shape[-2]) for k in range(n_slots)
-    )
-
-
-def pool_layout(
-    ids: np.ndarray, num_graphs: int, window: int
-) -> Optional[tuple[np.ndarray, np.ndarray]]:
-    """(pool_gl, pool_row) of the in-kernel finalize layout over a padded
-    node-graph-id axis, or None when a window holds more than POOL_GMAX
-    graphs. Shared by as_batch (single chip) and
-    parallel.halo.build_halo_batch (per-shard layout, global rows)."""
-    n = ids.shape[0]
-    num_windows = -(-n // window)
-    real = ids < num_graphs - 1  # gap/pad rows carry the pad-graph id
-    win = np.arange(n) // window
-    big = np.iinfo(np.int32).max
-    gbase = np.full(num_windows, big, np.int64)
-    np.minimum.at(gbase, win[real], ids[real])
-    gbase[gbase == big] = 0  # all-padding windows
-    gl = np.full(num_windows * window, POOL_GMAX, np.int64)
-    gl[: n][real] = ids[real] - gbase[win[real]]
-    if real.any() and gl[: n][real].max() >= POOL_GMAX:
-        return None
-    first = np.full(num_graphs, n - 1, np.int64)
-    np.minimum.at(first, ids, np.arange(n))
-    w_of_g = first // window
-    row = w_of_g * POOL_GMAX + (np.arange(num_graphs) - gbase[w_of_g])
-    # The pad graph and empty graphs get garbage slots (clamped into
-    # range) — their mean_pool rows are garbage by design already.
-    return (
-        gl.astype(ml_dtypes.bfloat16),
-        np.clip(row, 0, num_windows * POOL_GMAX - 1).astype(np.int32),
-    )
-
-
-def _pad_rows(arr: np.ndarray, rows: int, fill=0) -> np.ndarray:
-    out = np.full((rows,) + arr.shape[1:], fill, arr.dtype)
-    out[: arr.shape[0]] = arr
-    return out
-
-
-def _window_degree_perm(
-    senders: np.ndarray, receivers: np.ndarray, n: int, window: int
-) -> np.ndarray:
-    """Permutation of the padded node axis that sorts each window's rows
-    by LOCAL in-degree, descending (stable). Real rows always precede the
-    window's phantom padding and the trailing pad node stays pinned at
-    index n−1, so slicing back to n rows keeps every real node and every
-    pad-node invariant. Returns perm over [0, NW·window) with
-    new_row r ← old_row perm[r]."""
-    num_windows = -(-n // window)
-    rows = num_windows * window
-    real_e = receivers < n - 1
-    loc = real_e & (senders // window == receivers // window)
-    deg = np.bincount(receivers[loc], minlength=rows).astype(np.int64)
-    pos = np.arange(rows, dtype=np.int64)
-    # Sort key per row: (window, -deg with pad-node→-1 and phantoms→-2,
-    # original position) — lexsort uses the LAST key as primary.
-    key_deg = deg.copy()
-    key_deg[n - 1] = -1  # the pad node: last real row of its window
-    key_deg[n:] = -2  # phantom padding rows: after every real row
-    order = np.lexsort((pos, -key_deg, pos // window))
-    return order.astype(np.int64)
-
-
-def _attach_pool_layout(
-    batch: dict, packed: PackedGraphs, window: int, ids=None
-) -> None:
-    """In-kernel finalize layout: per-node graph-local ids + a static
-    graph→row map, so the megakernels can mean-pool per window with a
-    [W, GMAX] one-hot matmul instead of an XLA segment-sum scatter (the
-    scatter's cost is per ROW, not per byte — measured ~0.15 ms/pass at
-    [33k, 100] and no cheaper at [33k, 1]).
-
-    Window-aligned packing keeps every graph inside one window, so window
-    w's pooled partials occupy rows [w·GMAX, (w+1)·GMAX) of the kernel's
-    pool output, at slot (graph − first graph of the window). ``pool_gl``
-    rides the feature tile as one bf16-exact column (sentinel GMAX for
-    window-padding rows); ``pool_row`` indexes each real graph's partial
-    row (finalize ≙ GIN/src/finalize.cc:14-115, computed in the kernel
-    like the reference's dataflow finalize stage)."""
-    out = pool_layout(
-        np.asarray(ids) if ids is not None else packed.node_graph,
-        packed.n_node.shape[0], window,
-    )
-    if out is None:
-        # A window holds more than POOL_GMAX graphs (a dense stream of
-        # tiny graphs at a large window). Leave the layout unattached —
-        # every model gates its megakernel on `"pool_gl" in batch`, so
-        # the batch gracefully runs the per-layer kernels + XLA mean-pool
-        # instead of dying here.
-        import warnings
-
-        warnings.warn(
-            f"window of {window} holds more than POOL_GMAX={POOL_GMAX} "
-            "graphs; in-kernel pooling disabled for this bucket "
-            "(per-layer kernel fallback)",
-            stacklevel=3,
-        )
-        return
-    batch["pool_gl"], batch["pool_row"] = out
-
-
-def _attach_spill_blocks(
-    batch: dict, sp_recv: np.ndarray, n: int,
-    sp_send: Optional[np.ndarray] = None,
-):
-    """PAIR-blocked layout for the SPILL tail (VERDICT r2 #5).
-
-    XLA's scatter-add lowering pays per scattered index AND materialises
-    the full [N, D] output — measured 42% of the hep10k GIN-VN pass for a
-    spill tail that is 0.7% of the edges — and XLA's per-row gather of
-    the spill SOURCES was the next-largest term. Spill lanes are sorted
-    by (receiver scatter-window, sender window) and padded to 128-lane
-    blocks per pair, so ONE lane order serves both sides:
-
-      * scatter: the windowed one-hot kernel (ops/pallas/spmm.py) over a
-        COMPACT remapping of the touched receiver windows (the dense
-        [n, D] term returns via one T+1-entry window-granular take —
-        spill_blk_winmap — never a per-row op);
-      * gather (``sp_send`` given): each block reads ONE sender window,
-        so h_u comes from a batched [NB, 128, w] one-hot matmul against
-        NB window slices (base.spill_gather) — the one-hots themselves
-        are precomputed here at pack time (spill_gblk_onehot).
-
-    The caller re-orders the spill lanes by the returned (perm, valid)
-    at pack time; no runtime permutation survives. Molecular spill tails
-    pair-pad benignly (hep10k GIN-VN: 2-10 pairs/bucket, ≤4% padding)."""
-    w = SPILL_SCATTER_WINDOW
-    nw = -(-n // w)
-    sp_recv = np.asarray(sp_recv)
-    real = np.nonzero(sp_recv < n - 1)[0]
-    rw = sp_recv[real] // w
-    srcw = (
-        np.asarray(sp_send)[real] // w if sp_send is not None
-        else np.zeros(real.shape[0], np.int64)
-    )
-    order = np.lexsort((real, srcw, rw))
-    real, rw, srcw = real[order], rw[order], srcw[order]
-    blocks: list = []
-    i = 0
-    while i < real.shape[0]:
-        j = i
-        while j < real.shape[0] and rw[j] == rw[i] and srcw[j] == srcw[i]:
-            j += 1
-        seg = real[i:j]
-        for b in range(-(-seg.shape[0] // PALLAS_BLOCK)):
-            blocks.append(
-                (int(rw[i]), int(srcw[i]),
-                 seg[b * PALLAS_BLOCK : (b + 1) * PALLAS_BLOCK])
-            )
-        i = j
-    if not blocks:
-        blocks = [(0, 0, np.zeros(0, np.int64))]
-    nb = len(blocks)
-    perm = np.zeros(nb * PALLAS_BLOCK, np.int64)
-    valid = np.zeros(nb * PALLAS_BLOCK, bool)
-    for bi, (_, _, lanes) in enumerate(blocks):
-        perm[bi * PALLAS_BLOCK : bi * PALLAS_BLOCK + lanes.shape[0]] = lanes
-        valid[bi * PALLAS_BLOCK : bi * PALLAS_BLOCK + lanes.shape[0]] = True
-    vloc = np.full(nb * PALLAS_BLOCK, w, np.int32)
-    vloc[valid] = sp_recv[perm[valid]] % w
-    recw = np.array([b[0] for b in blocks], np.int64)
-    uniq, t_ids = np.unique(recw, return_inverse=True)
-    winmap = np.full(nw, uniq.shape[0], np.int32)  # sentinel = T
-    winmap[uniq] = np.arange(uniq.shape[0], dtype=np.int32)
-    batch["spill_blk_vlocal"] = vloc
-    batch["spill_blk_window"] = t_ids.astype(np.int32)
-    batch["spill_blk_winmap"] = winmap
-    batch["spill_blk_geom"] = np.zeros((w,), np.int8)  # window in the shape
-    if sp_send is not None:
-        ul = np.full(nb * PALLAS_BLOCK, w, np.int32)
-        ul[valid] = np.asarray(sp_send)[perm[valid]] % w
-        src_ids = np.array([b[1] for b in blocks], np.int32)
-        # spill_gather slices h to its FULL windows (padding h costs a
-        # full [N, D] copy per layer). A sender in the partial trailing
-        # window (tiny buckets where n < the scatter window, or capacity
-        # not a window multiple) cannot be served by full-window slices —
-        # skip the gather-side layout and let spill_gather fall back to
-        # the per-row take (the scatter-side blocked layout still rides).
-        if int(src_ids.max(initial=0)) < n // w:
-            batch["spill_gblk_src"] = src_ids
-            batch["spill_gblk_onehot"] = (
-                ul.reshape(nb, PALLAS_BLOCK)[:, :, None]
-                == np.arange(w)[None, None, :]
-            ).astype(ml_dtypes.bfloat16)
-    return perm, valid
-
-
-def spill_segment_sum(
-    vals: jnp.ndarray, v_tail: jnp.ndarray, batch: dict, n: int
-) -> jnp.ndarray:
-    """Spill-tail reduction dispatch: the windowed-scatter Pallas kernel
-    when the batch carries the pack-time spill blocked layout (single-chip
-    local layouts — spill lanes are ALREADY in blocked order there), XLA
-    segment-sum otherwise (halo shards and legacy paths)."""
-    if "spill_blk_vlocal" in batch:
-        from ..ops.pallas.spmm import windowed_segment_sum
-
-        w = int(batch["spill_blk_geom"].shape[0])
-        winmap = jnp.asarray(batch["spill_blk_winmap"])
-        # T compact windows: block ids are 0..T-1 (static, pack-time).
-        t = int(np.asarray(batch["spill_blk_window"]).max()) + 1
-        compact = windowed_segment_sum(
-            vals,
-            jnp.asarray(batch["spill_blk_vlocal"])[:, None],
-            jnp.asarray(batch["spill_blk_window"]),
-            w, t,
-        )
-        d = vals.shape[1]
-        out3 = jnp.concatenate(
-            [compact.reshape(t, w, d),
-             jnp.zeros((1, w, d), compact.dtype)], axis=0
-        )
-        return out3[winmap].reshape(-1, d)[:n]
-    return segment_sum(vals, v_tail, n)
-
-
-def spill_gather(
-    h: jnp.ndarray, u_tail: jnp.ndarray, batch: dict, n: int
-) -> jnp.ndarray:
-    """Spill-tail SOURCE gather dispatch: with the pair-blocked layout
-    each 128-lane block reads one sender window, so h_u is NB big window
-    slices + one batched one-hot matmul (pack-time one-hots) — XLA's
-    per-row take was ~1 µs/graph on hep10k GIN-VN. Falls back to take
-    (halo shards, legacy paths). Pad/masked lanes gather exact zeros."""
-    if "spill_gblk_src" not in batch:
-        return jnp.take(h, u_tail, axis=0)
-    w = int(batch["spill_blk_geom"].shape[0])
-    d = h.shape[1]
-    # Slice to FULL windows (a pad would copy all of h per layer); the
-    # pack-time builder asserts no spill sender lives in the partial tail.
-    nw = n // w
-    blocks = h[: nw * w].reshape(nw, w, d)[jnp.asarray(batch["spill_gblk_src"])]
-    oh = jnp.asarray(batch["spill_gblk_onehot"]).astype(h.dtype)
-    out = jnp.einsum(
-        "bpw,bwd->bpd", oh, blocks, preferred_element_type=jnp.float32
-    )
-    return out.reshape(-1, d).astype(h.dtype)
-
-
-def _attach_degrees(batch: dict, n: int) -> None:
-    """Host-precomputed degree tables (in_degree/out_degree read them when
-    present). Degrees are graph constants — the reference precounts them
-    at load time (GIN/src/load_inputs.cc:96-130); computing them per
-    forward pass costs an [E]-row XLA scatter each. Pad edges point at
-    the pad node, so they land in its slot — identical to the device
-    segment-sum."""
-    batch["out_deg"] = np.bincount(
-        batch["senders"], minlength=n
-    ).astype(np.int32)
-    batch["in_deg"] = np.bincount(
-        batch["receivers"], minlength=n
-    ).astype(np.int32)
-    if "node_eigen" in batch:
-        # DGN's per-node eig sums (DGN/src/load_inputs.cc:105-110) are
-        # graph constants too — precompute in f32 like the reference's
-        # load stage instead of two [E]-row scatters per forward pass.
-        eig = batch["node_eigen"][:, 1].astype(np.float32)
-        ew = eig[batch["senders"]] - eig[batch["receivers"]]
-        s = np.zeros(n, np.float32)
-        np.add.at(s, batch["receivers"], ew)
-        a = np.zeros(n, np.float32)
-        np.add.at(a, batch["receivers"], np.abs(ew))
-        batch["eigw_sum"] = s
-        batch["eig_abssum"] = a
-
-
-def as_batch(
-    packed: PackedGraphs, blocked=False, window: int | None = None,
-    block: int | None = None, *, slots: int | None = None,
-    prefix_caps=None, spill_capacity: int | None = None,
-) -> dict:
-    """PackedGraphs → dict of numpy arrays ready for jnp/jit consumption.
-
-    ``blocked=True`` attaches the segment-sorted edge-block layout that
-    routes message reductions through the Pallas windowed-scatter kernel
-    (ops/pallas/spmm.py). ``blocked="local"`` attaches the graph-local
-    layout (requires window-aligned packing — pack_graphs_aligned) that
-    additionally keeps the gather in-window for the fully fused kernel
-    (ops/pallas/local_layer.py); window-crossing edges go to a spill tail.
-
-    ``window``/``block`` override the ELL grid geometry (default
-    PALLAS_ELL_WINDOW/PALLAS_ELL_BLOCK); the chosen geometry rides in the
-    batch as the static shape of the ``loc_ell`` marker array (see
-    ``ell_geometry``), so models need no out-of-band configuration. The
-    spill tail is auto-sized to the actual spill count (zero lanes when
-    window-aligned packing leaves nothing to spill — the models then skip
-    the per-layer spill reduction entirely).
-
-    ``slots`` / ``prefix_caps`` / ``spill_capacity`` pin the otherwise
-    bucket-auto-derived static layout parameters (slot-axis depth,
-    per-slot prefix caps, spill-tail lanes) so every bucket of a stream
-    shares ONE program signature — the prerequisite for stacking buckets
-    under a lax.scan (bench protocol; see ``as_batches_uniform``). Pinned
-    values must cover the bucket's own requirements (use stream-wide
-    maxima); under-pinned slots route deeper in-degrees to the spill
-    tail, while under-pinned caps are rejected (they would drop edges).
-    """
+def as_batch(packed: PackedGraphs) -> dict:
+    """PackedGraphs → dict of numpy arrays ready for jnp/jit consumption."""
     batch = {
         "node_feat": packed.node_feat,
         "node_graph": packed.node_graph,
@@ -491,234 +43,6 @@ def as_batch(
         # the flag rides the batch so models/gin.py can compute the VN
         # star's messages as per-graph pool + broadcast instead of edges.
         batch["vn_mask"] = packed.node_vn
-    if blocked == "local_slots":
-        from ..core.blocking import build_local_slots
-
-        n = packed.node_capacity + 1
-        w = window or PALLAS_ELL_WINDOW
-        # Auto-size the slot axis to the bucket's max local in-degree
-        # (capped at PALLAS_SLOTS — deeper in-degrees ride the spill tail):
-        # molecular graphs peak at 5-7, so this cuts 1 − S/8 of every slot
-        # kernel's gather lanes for free.
-        # Window-degree sort: rows of each window re-ordered by local
-        # in-degree (descending; the trailing pad node pinned last). A
-        # pure in-window relabeling — every consumer is order-free — that
-        # makes slot k's occupied lanes a PREFIX of the window, so the
-        # prefix-compacted gather layouts below drop the ~45% of slot
-        # lanes molecular degree distributions leave empty.
-        senders = np.asarray(packed.senders)
-        receivers = np.asarray(packed.receivers)
-        node_perm = _window_degree_perm(senders, receivers, n, w)
-        inv = np.empty_like(node_perm)
-        inv[node_perm] = np.arange(node_perm.shape[0])
-        nw_rows = node_perm.shape[0]  # NW·W (≥ n)
-        batch["node_feat"] = _pad_rows(packed.node_feat, nw_rows)[node_perm][:n]
-        batch["node_graph"] = _pad_rows(
-            packed.node_graph, nw_rows, fill=int(packed.n_node.shape[0] - 1)
-        )[node_perm][:n]
-        if packed.node_eigen is not None:
-            batch["node_eigen"] = _pad_rows(
-                packed.node_eigen, nw_rows
-            )[node_perm][:n]
-        if packed.node_vn is not None:
-            batch["vn_mask"] = _pad_rows(
-                packed.node_vn, nw_rows
-            )[node_perm][:n]
-        senders = inv[senders].astype(np.int32)
-        receivers = inv[receivers].astype(np.int32)
-        batch["senders"], batch["receivers"] = senders, receivers
-
-        real = receivers < n - 1
-        loc = real & (senders // w == receivers // w)
-        s_needed = int(
-            np.bincount(receivers[loc], minlength=n).max()
-        ) if loc.any() else 1
-        s_slots = slots or max(1, min(s_needed, PALLAS_SLOTS))
-        slot_src, spill, count, slot_edge = build_local_slots(
-            senders, receivers, n, window=w, slots=s_slots,
-            spill_capacity=spill_capacity,
-        )
-        batch["slot_src"] = slot_src  # [NW·W, S] — rides the feature tile
-        # GAT's stacked-gather kernel wants the [NW·S·W] column layout in a
-        # float dtype (bf16 indices halve the DMA-tile traffic of a
-        # [R, 1]-blocked input; exact for W <= 256).
-        import ml_dtypes
-
-        stack_dt = ml_dtypes.bfloat16 if w <= 256 else np.float32
-        nw = slot_src.shape[0] // w
-        stack = np.ascontiguousarray(
-            slot_src.reshape(nw, w, s_slots).transpose(0, 2, 1)
-        ).reshape(-1)
-        batch["slot_stack"] = stack.astype(stack_dt)
-        if count == 0:
-            # PREFIX-compacted stacked layout (degree-sorted windows):
-            # slot k's real lanes are rows [0, c_k) of each window; the
-            # static per-slot caps (max over windows, 8-aligned) ride in
-            # ``slot_pcaps`` and cut the gather matmul's M from S·W to
-            # Σ c_k — ~40% on molhiv (no-spill buckets only: the prefix
-            # kernel is megakernel-only).
-            occ = (slot_src.reshape(nw, w, s_slots) < w).sum(axis=1)  # [NW, S]
-            # 64-row floor: Mosaic crashes lowering ops whose source is a
-            # single 8-sublane vreg against a ~full-window constant region
-            # ("Check failed: limits[i] <= dim(i)").
-            caps = np.minimum(-(-occ.max(axis=0) // 64) * 64, w)
-            caps = np.maximum(caps, 64)
-            if prefix_caps is not None:
-                pinned = np.asarray(prefix_caps, np.int64)
-                if (pinned < occ.max(axis=0)).any():
-                    raise ValueError(
-                        "pinned prefix_caps below this bucket's slot "
-                        f"occupancy ({tuple(pinned)} < "
-                        f"{tuple(occ.max(axis=0))}) — would drop edges"
-                    )
-                caps = np.minimum(pinned, w)
-            m_rows = int(caps.sum())
-            pstack = np.full((nw, m_rows), w, np.int32)
-            off = 0
-            for k in range(s_slots):
-                c = int(caps[k])
-                pstack[:, off : off + c] = slot_src.reshape(
-                    nw, w, s_slots
-                )[:, :c, k]
-                off += c
-            batch["slot_pstack"] = pstack.reshape(-1).astype(stack_dt)
-            # Caps ride in SHAPES (one tiny marker per slot) so they stay
-            # static when the batch is a jit argument.
-            for k in range(s_slots):
-                batch[f"slot_pcap_{k}"] = np.zeros((int(caps[k]), 1), np.int8)
-            # Prefix-aligned per-lane metadata for the edge-featured slot
-            # megakernels (GIN/GCN/GIN-VN — round 5): one small-float
-            # [NW·Σc, 4] array of (src − W/2, bond attrs + offsets), the
-            # slot analog of _ell_meta (indices recentered so bf16 stays
-            # exact through W=512; empty lanes carry the src sentinel and
-            # attr −1, and the kernels mask messages by src validity).
-            half = w // 2 if w <= 512 else 0
-            mdt = ml_dtypes.bfloat16 if w <= 512 else np.float32
-            meta = np.zeros((nw, m_rows, 4), np.float32)
-            meta[:, :, 0] = pstack - half
-            meta[:, :, 1:] = -1.0
-            ea_off = np.asarray(batch["edge_attr"]) + np.asarray(
-                BOND_FEATURE_OFFSETS
-            )[None, :]
-            off = 0
-            for k in range(s_slots):
-                c = int(caps[k])
-                se = slot_edge.reshape(nw, w, s_slots)[:, :c, k]
-                vmask = se >= 0
-                meta[:, off : off + c, 1:][vmask] = ea_off[se[vmask]]
-                off += c
-            batch["slot_meta"] = meta.reshape(-1, 4).astype(mdt)
-        batch["slot_spill"] = spill
-        batch["slot_spill_mask"] = (
-            np.arange(spill.shape[0]) < count
-        )
-        if count:
-            # Blocked windowed-scatter layout for the spill merge, and the
-            # spill INDEX array itself re-ordered into blocked order at
-            # pack time (masked lanes → pad edges, matching the runtime
-            # sp_v the models derive).
-            sp_recv = np.where(
-                batch["slot_spill_mask"], receivers[spill], n - 1,
-            )
-            sp_send = np.where(
-                batch["slot_spill_mask"], senders[spill], n - 1,
-            )
-            perm, valid = _attach_spill_blocks(
-                batch, sp_recv, n, sp_send=sp_send,
-            )
-            batch["slot_spill"] = np.where(valid, spill[perm], 0)
-            batch["slot_spill_mask"] = valid
-        # Shape carries (window, slots) to the model — see ell_geometry.
-        batch["slot_geom"] = np.zeros((w, s_slots), np.int32)
-        _attach_pool_layout(batch, packed, w, ids=batch["node_graph"])
-        _attach_degrees(batch, n)
-        return batch
-    if blocked in ("local", "local_ell"):
-        from ..core.blocking import build_local_blocks, build_local_blocks_ell
-
-        n = packed.node_capacity + 1
-        if blocked == "local_ell":
-            lb = build_local_blocks_ell(
-                packed.senders, packed.receivers, n,
-                window=window or PALLAS_ELL_WINDOW,
-                block=block or PALLAS_ELL_BLOCK,
-                spill_capacity=spill_capacity,
-            )
-            if lb.k_blocks > 1:
-                import sys
-
-                # k > 1 doubles every window's lane count — correct but
-                # 2x the kernel cost; the tuned per-model blocks assume a
-                # molhiv-density stream (see cli tune).
-                print(
-                    f"flowgnn_tpu: ELL grid k={lb.k_blocks} (densest window "
-                    f"exceeds block={lb.block}) — consider --ell-block >= "
-                    f"{lb.k_blocks * lb.block} or `cli tune` for this stream",
-                    file=sys.stderr,
-                )
-        else:
-            lb = build_local_blocks(
-                packed.senders, packed.receivers, n, packed.edge_capacity,
-                window=PALLAS_WINDOW, block=PALLAS_BLOCK,
-            )
-        p_lanes = lb.num_blocks * lb.block
-        pad = n - 1
-        s = np.full(p_lanes, pad, np.int32)
-        r = np.full(p_lanes, pad, np.int32)
-        a = np.zeros((p_lanes, packed.edge_attr.shape[1]), np.int32)
-        s[lb.valid] = packed.senders[lb.edge_perm[lb.valid]]
-        r[lb.valid] = packed.receivers[lb.edge_perm[lb.valid]]
-        a[lb.valid] = packed.edge_attr[lb.edge_perm[lb.valid]]
-        sp = lb.spill
-        sp_s = packed.senders[sp].copy()
-        sp_r = packed.receivers[sp].copy()
-        sp_a = packed.edge_attr[sp].copy()
-        # spill slots beyond the real crossing edges are index-0 duplicates;
-        # neutralise them to pad edges.
-        n_sp = getattr(lb, "spill_count", 0)
-        sp_s[n_sp:] = pad
-        sp_r[n_sp:] = pad
-        sp_a[n_sp:] = 0
-        if n_sp and blocked == "local_ell":
-            # Re-order the spill lanes into windowed-scatter blocked order
-            # AT PACK TIME (no runtime permutation survives); the blocked
-            # tail may be slightly longer (128-lane blocks).
-            perm, valid = _attach_spill_blocks(batch, sp_r, n, sp_send=sp_s)
-            sp_s = np.where(valid, sp_s[perm], pad)
-            sp_r = np.where(valid, sp_r[perm], pad)
-            sp_a = np.where(valid[:, None], sp_a[perm], 0)
-        batch["senders"] = np.concatenate([s, sp_s])
-        batch["receivers"] = np.concatenate([r, sp_r])
-        batch["edge_attr"] = np.concatenate([a, sp_a])
-        batch["loc_ulocal"] = lb.u_local
-        batch["loc_vlocal"] = lb.v_local
-        if blocked == "local_ell":
-            # Static-grid marker; its SHAPE carries the grid geometry
-            # (window, k_blocks) to the models — see ell_geometry().
-            batch["loc_ell"] = np.zeros((lb.window, lb.k_blocks), np.int32)
-            _attach_pool_layout(batch, packed, lb.window)
-        else:
-            batch["loc_window"] = lb.block_window
-        _attach_degrees(batch, n)
-        return batch
-    if blocked:
-        from ..core.blocking import apply_blocking, build_edge_blocks
-
-        n = packed.node_capacity + 1  # include the pad node row
-        blocks = build_edge_blocks(
-            packed.receivers, n, packed.edge_capacity,
-            window=PALLAS_WINDOW, block=PALLAS_BLOCK,
-        )
-        # Edge arrays are REPLACED by their blocked-order layout (a pure
-        # reordering + padding of the edge axis — every edge-order-agnostic
-        # consumer keeps working); the kernel then runs with no runtime
-        # permutation.
-        s, r, a = apply_blocking(
-            blocks, packed.senders, packed.receivers, packed.edge_attr, n - 1
-        )
-        batch["senders"], batch["receivers"], batch["edge_attr"] = s, r, a
-        batch["blk_vlocal"] = blocks.v_local
-        batch["blk_window"] = blocks.block_window
     return batch
 
 
@@ -727,68 +51,6 @@ def batch_signature(batch: dict):
     tuple. Batches with equal signatures compile to the same program and
     can be stacked under one lax.scan (bench protocol)."""
     return tuple(sorted((k, v.shape, str(v.dtype)) for k, v in batch.items()))
-
-
-def as_batches_uniform(
-    buckets, blocked=False, window: int | None = None,
-    block: int | None = None,
-) -> list:
-    """as_batch over a whole bucket stream, reconciling the auto-derived
-    static layout parameters (slot depth, prefix caps, spill lanes) to
-    stream-wide maxima so every bucket shares one program signature where
-    possible. This is what lets the timing protocol scan over stacked
-    buckets — one compiled bucket body for an arbitrarily long stream,
-    matching the reference's whole-dataset-per-enqueue discipline
-    (run_experiments.sh:44-46) with a compile time independent of stream
-    length. Buckets that still differ (e.g. content-dependent spill-block
-    layouts) simply land in their own signature group."""
-    mk = lambda b, **kw: as_batch(
-        b, blocked=blocked, window=window, block=block, **kw
-    )
-    batches = [mk(b) for b in buckets]
-    if len(batches) < 2 or len({batch_signature(b) for b in batches}) == 1:
-        return batches
-    kw = {}
-    if blocked == "local_slots":
-        kw["slots"] = max(b["slot_geom"].shape[-1] for b in batches)
-        if all("slot_pcap_0" in b for b in batches):
-            # No bucket spills: reconcile the per-slot prefix caps
-            # (missing deeper slots contribute the 64-row floor).
-            import itertools
-
-            caps = [
-                tuple(
-                    b[f"slot_pcap_{k}"].shape[-2]
-                    for k in range(b["slot_geom"].shape[-1])
-                )
-                for b in batches
-            ]
-            kw["prefix_caps"] = tuple(
-                max(c) for c in itertools.zip_longest(*caps, fillvalue=64)
-            )
-        elif all(b["slot_spill_mask"].any() for b in batches):
-            kw["spill_capacity"] = max(
-                b["slot_spill"].shape[-1] for b in batches
-            )
-    elif blocked in ("local", "local_ell"):
-        spill_lanes = [
-            b["senders"].shape[0] - b["loc_ulocal"].shape[0] for b in batches
-        ]
-        if min(spill_lanes) > 0:
-            kw["spill_capacity"] = max(spill_lanes)
-    if not kw:
-        return batches
-    return [mk(b, **kw) for b in buckets]
-
-
-def ell_geometry(batch: dict) -> tuple[int, int]:
-    """(window, k_blocks) of the batch's static ELL kernel grid.
-
-    The geometry rides in the SHAPE of the ``loc_ell`` marker array built by
-    ``as_batch``/``parallel.halo.build_halo_batch`` — trailing two dims so it
-    survives the leading chip axis of stacked halo batches."""
-    m = batch["loc_ell"]
-    return int(m.shape[-2]), int(m.shape[-1])
 
 
 def halo_mode(batch: dict, axis_name: Optional[str]) -> bool:
@@ -801,11 +63,9 @@ def halo_mode(batch: dict, axis_name: Optional[str]) -> bool:
 def halo_exchange(h: jnp.ndarray, batch: dict, axis_name: str) -> jnp.ndarray:
     """Ship this chip's boundary rows to every peer and return the extended
     node array [S + k·H, D] = [local rows ‖ halo rows] that the (pre-remapped)
-    senders index. One lax.all_to_all of [k, H, D] over ICI — the
-    halo-exchange mapping of EDGE_PARALLEL (SURVEY.md §2.4 row 1), O(k·H·D)
-    bytes instead of the psum path's O(N·D)."""
-    import jax
-
+    senders index. One lax.all_to_all of [k, H, D] over the device
+    interconnect — the halo-exchange mapping of EDGE_PARALLEL (SURVEY.md
+    §2.4 row 1), O(k·H·D) bytes instead of the psum path's O(N·D)."""
     send_idx = batch["halo_send_idx"]  # [k, H] — this chip's rows per peer
     k, cap = send_idx.shape
     send = jnp.take(h, send_idx.reshape(-1), axis=0).reshape(k, cap, -1)
@@ -826,20 +86,13 @@ def gather_sources(
 def edge_segment_sum(
     vals: jnp.ndarray, batch: dict, axis_name: Optional[str] = None
 ) -> jnp.ndarray:
-    """Message reduction dispatch: Pallas windowed scatter when the batch
-    carries the blocked layout (single chip); chip-local segment-sum with a
-    trash row in halo mode (no collective — the halo exchange happened on
-    the gather side); XLA segment-sum + psum on the replicated edge-sharded
-    path otherwise."""
+    """Message reduction dispatch: chip-local segment-sum with a trash row
+    in halo mode (no collective — the halo exchange happened on the gather
+    side); XLA segment-sum (+ psum on the replicated edge-sharded path)
+    otherwise."""
     n = num_nodes_static(batch)
     if halo_mode(batch, axis_name):
         return segment_sum(vals, batch["receivers"], n + 1)[:n]
-    if axis_name is None and "blk_vlocal" in batch:
-        from ..ops.pallas.spmm import segment_sum_blocked
-
-        return segment_sum_blocked(
-            vals, batch["blk_vlocal"], batch["blk_window"], n, PALLAS_WINDOW,
-        )
     return segment_sum(vals, batch["receivers"], n, axis_name)
 
 
@@ -855,9 +108,9 @@ def num_graphs_static(batch: dict) -> int:
 def atom_embed(table: jnp.ndarray, node_feat: jnp.ndarray, prec: Precision) -> jnp.ndarray:
     """h0[v] = Σ_f AtomTable[offset_f + feat_f[v]] (GIN/src/load_inputs.cc:174-220).
 
-    Formulated as a multi-hot [N, 173] × table matmul: the 9-row gather is
-    HBM-latency bound (~480 µs/bucket profiled) while the one-hot compares +
-    MXU matmul run in ~1/3 the time — and it is the same sum, exactly.
+    Formulated as a multi-hot [N, 173] × table matmul instead of a 9-row
+    gather; with exact 0/1 operands and full-precision accumulation it is
+    the same sum.
     """
     rows = node_feat + jnp.asarray(ATOM_FEATURE_OFFSETS)[None, :]
     vocab = table.shape[0]
@@ -865,7 +118,7 @@ def atom_embed(table: jnp.ndarray, node_feat: jnp.ndarray, prec: Precision) -> j
     multihot = (rows[:, :, None] == iota).astype(prec.compute_dtype).sum(axis=1)
     h = jnp.dot(
         multihot, table.astype(prec.compute_dtype),
-        preferred_element_type=acc_dtype(prec),
+        preferred_element_type=acc_dtype(prec), precision=dot_precision(prec),
     ).astype(prec.compute_dtype)
     return prec.q(h)
 
@@ -873,9 +126,7 @@ def atom_embed(table: jnp.ndarray, node_feat: jnp.ndarray, prec: Precision) -> j
 def bond_embed(table_l: jnp.ndarray, edge_attr: jnp.ndarray, prec: Precision) -> jnp.ndarray:
     """ee[e] = Σ_f BondTable_l[offset_f + attr_f[e]] (GIN/src/message_passing.cc:136-146).
 
-    Multi-hot [E, 13] matmul like atom_embed — XLA's row gather pays per
-    row (it dominated the kernelized spill tail), the one-hot compare +
-    MXU matmul does not, and it is the same sum exactly."""
+    Multi-hot [E, 13] matmul like atom_embed — the same sum, exactly."""
     rows = edge_attr + jnp.asarray(BOND_FEATURE_OFFSETS)[None, :]
     vocab = table_l.shape[0]
     iota = jnp.arange(vocab, dtype=jnp.int32)[None, None, :]
@@ -884,7 +135,7 @@ def bond_embed(table_l: jnp.ndarray, edge_attr: jnp.ndarray, prec: Precision) ->
     )
     ee = jnp.dot(
         multihot, table_l.astype(prec.compute_dtype),
-        preferred_element_type=acc_dtype(prec),
+        preferred_element_type=acc_dtype(prec), precision=dot_precision(prec),
     )
     return prec.q(ee.astype(prec.compute_dtype))
 
@@ -927,48 +178,26 @@ def mean_pool(
     return prec.q(total / count[:, None])
 
 
-def pool_gather(
-    partials: jnp.ndarray, axis_name: Optional[str]
-) -> jnp.ndarray:
-    """Complete per-shard in-kernel pool partials across the edge mesh.
-
-    Chips own contiguous global window ranges (parallel/halo.py row
-    sharding), so one tiled all_gather of the [NW_shard·GMAX, T] partials
-    reconstructs the global [NW·GMAX, T] table the replicated ``pool_row``
-    indexes — the megakernels' finalize analog of mean_pool's psum, and
-    the only readout collective on the sharded megakernel path."""
-    if axis_name is None:
-        return partials
-    import jax
-
-    return jax.lax.all_gather(partials, axis_name, axis=0, tiled=True)
-
-
-def pool_finish(
-    partials: jnp.ndarray, batch: dict, b: Optional[jnp.ndarray],
-    prec: Precision,
-) -> jnp.ndarray:
-    """[NW·GMAX, k] in-kernel pool partials → [G, k] per-graph means (+b).
-
-    The take gathers one row per graph (static indices from
-    _attach_pool_layout) — ~16× fewer rows than the segment-sum scatter
-    it replaces, and a gather rather than a scatter."""
-    sums = jnp.take(partials, jnp.asarray(batch["pool_row"]), axis=0)
-    count = jnp.maximum(batch["n_node"], 1).astype(partials.dtype)
-    out = (sums / count[:, None]).astype(prec.compute_dtype)
-    if b is not None:
-        out = out + b
-    return prec.q(out)
-
-
 def acc_dtype(prec: Precision):
-    """MXU accumulation dtype: f32 for f32/bf16 compute, f64 in exactness tests."""
+    """Matmul accumulation dtype: f32 for f32/bf16 compute, f64 in exactness tests."""
     return jnp.float64 if prec.compute_dtype == jnp.float64 else jnp.float32
+
+
+def dot_precision(prec: Precision) -> jax.lax.Precision:
+    """HIGHEST for f32/f64 compute, so a GPU computes those dots in full
+    precision instead of TF32; bf16 keeps bf16 operands (with f32
+    accumulation via ``acc_dtype``)."""
+    if prec.compute_dtype == jnp.bfloat16 or prec.default_dots:
+        return jax.lax.Precision.DEFAULT
+    return jax.lax.Precision.HIGHEST
 
 
 def linear(x: jnp.ndarray, w: jnp.ndarray, b: Optional[jnp.ndarray], prec: Precision) -> jnp.ndarray:
     """Reference row-major matvec: y = x @ w.T + b (GIN/src/linear.cc:5-161)."""
-    y = jnp.dot(x, w.T, preferred_element_type=acc_dtype(prec)).astype(prec.compute_dtype)
+    y = jnp.dot(
+        x, w.T, preferred_element_type=acc_dtype(prec),
+        precision=dot_precision(prec),
+    ).astype(prec.compute_dtype)
     if b is not None:
         y = y + b
     return prec.q(y)
@@ -982,7 +211,6 @@ def prepare_params(params: dict, prec: Precision) -> dict:
     """Cast a numpy param pytree to device dtype; in fixed mode first snap
     every weight to the ap_fixed grid as the hosts' float→ap_fixed casts do
     (GIN/src/host_load.cc:60-98)."""
-    import jax
 
     def cvt(x):
         x = np.asarray(x)

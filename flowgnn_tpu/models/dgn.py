@@ -16,7 +16,6 @@ import jax.numpy as jnp
 
 from ..core.numerics import FLOAT32, Precision
 from ..ops.segment import segment_sum
-from . import base as _base
 from .base import (
     edge_segment_sum, gather_sources, halo_exchange, halo_mode, linear,
     mean_pool, out_degree, relu,
@@ -29,8 +28,7 @@ def _atom_embed_dgn(tables: jnp.ndarray, node_feat: jnp.ndarray, prec: Precision
     """DGN keeps 9 separate [119, dim] tables (DGN/src/load_inputs.cc:114-137);
     the used rows of each (vocab_f ≤ 119) are concatenated into the compact
     [173, dim] layout the other models use, so the lookup-sum runs as
-    base.atom_embed's multi-hot MXU matmul instead of an HBM-latency-bound
-    9-row dynamic gather (~3x faster per bucket, same sum exactly)."""
+    base.atom_embed's multi-hot matmul (the same sum, exactly)."""
     from ..core.features import ATOM_FEATURE_DIMS
     from .base import atom_embed
 
@@ -61,12 +59,6 @@ def forward(
         eig_w = prec.q(jnp.take(eig_ext, u) - jnp.take(eig, v))
         eig_abssum = segment_sum(jnp.abs(eig_w), v, n + 1)[:n]
         eigw_sum = prec.q(segment_sum(eig_w, v, n + 1)[:n])
-    elif "eigw_sum" in batch and prec.fixed is None and edge_axis is None:
-        # Host-precomputed (base._attach_degrees) — graph constants, like
-        # the reference's load stage (DGN/src/load_inputs.cc:105-110).
-        eig_w = prec.q(jnp.take(eig, u) - jnp.take(eig, v))
-        eigw_sum = prec.q(batch["eigw_sum"].astype(dt))
-        eig_abssum = batch["eig_abssum"].astype(dt)
     else:
         eig_w = prec.q(jnp.take(eig, u) - jnp.take(eig, v))
         eig_abssum = segment_sum(jnp.abs(eig_w), v, n, edge_axis)
@@ -76,152 +68,18 @@ def forward(
     # (DGN/src/node_embedding.cc:145); clamp for isolated nodes (message 0).
     deg = jnp.maximum(out_degree(batch, edge_axis), 1).astype(dt)[:, None]
 
-    local = "loc_ell" in batch and prec.fixed is None and (
-        edge_axis is None or halo
-    )
-    # Dest-major slot layout (single-chip default): no scatter matmul —
-    # see ops/pallas/local_layer.py:dgn_local_layer_slots. Under halo
-    # sharding the slot path engages only when nothing spills (no spill ⇒
-    # no cross-chip edges ⇒ every slot gather is chip-local); spilling
-    # halo batches route through the ELL/plain halo branches, whose spill
-    # gathers go through the boundary exchange.
-    slots_mode = "slot_src" in batch and prec.fixed is None and (
-        edge_axis is None
-        or (halo and batch["slot_spill"].shape[-1] == 0)
-    )
-    if local:
-        P = batch["loc_ulocal"].shape[0]
-        window, k_blocks = _base.ell_geometry(batch)
-        has_spill = u.shape[0] > P
-    if slots_mode:
-        window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
-        sp = batch["slot_spill"]
-        has_spill = sp.shape[-1] > 0
-        if has_spill:
-            sp_mask = batch["slot_spill_mask"]
-            sp_u = jnp.where(sp_mask, u[sp], n - 1)
-            sp_v = jnp.where(sp_mask, v[sp], n - 1)
-            eig_w_sp = prec.q(jnp.take(eig, sp_u) - jnp.take(eig, sp_v))
-
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
     inter = [h]
-    if (
-        slots_mode and not has_spill and not return_intermediates
-        and "pool_gl" in batch
-    ):
-        # Whole-model megakernel: all L conv layers + in-kernel finalize
-        # head in ONE pallas call (ops/pallas/local_layer.py:
-        # dgn_local_model) — slot one-hot and eig_u gathers built once, h
-        # resident in VMEM across layers, readout MLP-1 pooled per window.
-        from ..ops.pallas.local_layer import dgn_local_model
-
-        dim = params["posttrans_w"].shape[1]
-        w_all = jnp.concatenate(
-            [
-                params["posttrans_w"][l].reshape(dim, -1).T
-                for l in range(L)
-            ],
-            axis=0,
-        )
-        pool = dgn_local_model(
-            batch["slot_src"], h, eig,
-            (1.0 / deg)[:, 0], eigw_sum, 1.0 / eig_abssum,
-            w_all, params["posttrans_b"],
-            jnp.asarray(batch["pool_gl"]),
-            params["mlp1_w"].T.astype(dt),
-            window, n_slots, L, _base.POOL_GMAX,
-            prefix_caps=_base.slot_prefix_caps(batch, int(n_slots)),
-            wps=_base.slot_wps("dgn", window),
-        )
-        pool = _base.pool_gather(pool, edge_axis if halo else None)
-        z = relu(_base.pool_finish(pool, batch, params["mlp1_b"], prec))
-        z = relu(linear(z, params["mlp2_w"], params["mlp2_b"], prec))
-        return linear(z, params["mlp3_w"], params["mlp3_b"], prec)
     for l in range(L):
-        if slots_mode:
-            from ..ops.pallas.local_layer import dgn_local_layer_slots
-
-            w_post = params["posttrans_w"][l].reshape(
-                params["posttrans_w"].shape[1], -1
-            ).T
-            m_sp = None
-            if has_spill:
-                x_sp = _base.spill_gather(h, sp_u, batch, n)
-                m_sp = _base.spill_segment_sum(
-                    jnp.concatenate(
-                        [x_sp, eig_w_sp[:, None] * x_sp], axis=1
-                    ),
-                    sp_v, batch, n,
-                )
-            h = prec.q(
-                dgn_local_layer_slots(
-                    batch["slot_src"], h, eig,
-                    (1.0 / deg)[:, 0], eigw_sum, 1.0 / eig_abssum,
-                    w_post, params["posttrans_b"][l][None, :],
-                    window, n_slots, m_spill=m_sp,
-                )
-            )
-            inter.append(h)
-            continue
-        if local and not has_spill:
-            # No-spill fast path: the whole layer (two-channel gather,
-            # mean + directional-derivative normalisation, posttrans,
-            # residual) runs as ONE kernel pass — see
-            # ops/pallas/local_layer.py:dgn_local_layer_ell.
-            from ..ops.pallas.local_layer import dgn_local_layer_ell
-
-            w_post = params["posttrans_w"][l].reshape(
-                params["posttrans_w"].shape[1], -1
-            ).T
-            h = prec.q(
-                dgn_local_layer_ell(
-                    batch["loc_ulocal"], batch["loc_vlocal"], h, eig,
-                    (1.0 / deg)[:, 0], eigw_sum, 1.0 / eig_abssum,
-                    w_post, params["posttrans_b"][l][None, :],
-                    window, k_blocks,
-                )
-            )
-            inter.append(h)
-            continue
-        if local:
-            from ..ops.pallas.local_layer import dgn_local_message_ell
-
-            d = h.shape[1]
-            # Exchange first — the two-channel message kernel has no data
-            # edge into it, so the all_to_all overlaps the local
-            # aggregation (SURVEY §5; test_halo_overlap_independence).
-            hsrc = (
-                halo_exchange(h, batch, edge_axis) if halo and has_spill
-                else h
-            )
-            m1_loc, m2_loc = dgn_local_message_ell(
-                batch["loc_ulocal"], batch["loc_vlocal"], h, eig,
-                window, k_blocks,
-            )
-            if has_spill:
-                x_sp = (
-                    jnp.take(hsrc, u[P:], axis=0) if halo
-                    else _base.spill_gather(h, u[P:], batch, n)
-                )
-                sp = jnp.concatenate([x_sp, eig_w[P:][:, None] * x_sp], axis=1)
-                m_spill = (
-                    segment_sum(sp, v[P:], n + 1)[:n]
-                    if halo else _base.spill_segment_sum(sp, v[P:], batch, n)
-                )
-                m1 = prec.q(m1_loc + m_spill[:, :d])
-                m2 = prec.q(m2_loc + m_spill[:, d:])
-            else:
-                m1, m2 = prec.q(m1_loc), prec.q(m2_loc)
-        else:
-            x = gather_sources(h, batch, edge_axis)
-            d = x.shape[1]
-            mm = edge_segment_sum(
-                jnp.concatenate([x, eig_w[:, None] * x], axis=1), batch, edge_axis
-            )
-            m1, m2 = prec.q(mm[:, :d]), prec.q(mm[:, d:])
+        x = gather_sources(h, batch, edge_axis)
+        d = x.shape[1]
+        mm = edge_segment_sum(
+            jnp.concatenate([x, eig_w[:, None] * x], axis=1), batch, edge_axis
+        )
+        m1, m2 = prec.q(mm[:, :d]), prec.q(mm[:, d:])
         a1 = prec.q(m1 / deg)
         a2 = prec.q(jnp.abs(m2 - eigw_sum[:, None] * h) / eig_abssum[:, None])
-        # Fused two-channel linear: concat channels → one MXU matmul against
+        # Fused two-channel linear: concat channels → one matmul against
         # the [dim_out, 2·dim_in] reshaped posttrans weight.
         a = jnp.concatenate([a1, a2], axis=1)
         w = params["posttrans_w"][l].reshape(params["posttrans_w"].shape[1], -1)

@@ -23,160 +23,39 @@ and ..::test_gat_reference_feature_offset_bug pins the bug itself).
 from __future__ import annotations
 
 import jax.numpy as jnp
-import numpy as np
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.segment import segment_sum
-from . import base as _base
-from .base import edge_segment_sum, halo_exchange, halo_mode, linear, mean_pool
+from .base import (
+    acc_dtype, dot_precision, edge_segment_sum, halo_exchange, halo_mode,
+    linear, mean_pool,
+)
 
 LEAKY_SLOPE = 0.2
-
-# Fully-fused local ELL layer (softmax divide + skip + ELU + next
-# projection in the kernel epilogue). On the round-2 ELL geometry it
-# measured SLOWER than kernel-message + XLA glue (16.4 vs 9.9 µs/graph) and
-# stays opt-in. The default single-chip path is now the slot-layout
-# whole-model megakernel (gat_local_model_slots), which fuses the same glue
-# across ALL layers in one pallas call — per-window epilogue matmuls
-# amortize there because nothing round-trips to HBM between layers.
-import os as _os
-
-FUSE_LAYERS = _os.environ.get("FLOWGNN_GAT_FUSE", "0") == "1"
-# Precompute per-lane attention logits with XLA takes instead of the
-# in-kernel one-hot score gather (see gat_local_message_ell's raw param).
-RAW_SCORES = _os.environ.get("FLOWGNN_GAT_RAWSCORES", "0") == "1"
 
 
 def _project(w_l: jnp.ndarray, x: jnp.ndarray, prec: Precision) -> jnp.ndarray:
     """[head_out, dim_out, head_in, dim_in] × [n, head_in, dim_in].
 
-    Flattened to a single (n, H·D) @ (H·D, H·D) matmul so it lands on the MXU
-    as one dense op instead of 16 head-pair matmuls.
+    Flattened to a single (n, H·D) @ (H·D, H·D) matmul — one dense op
+    instead of 16 head-pair matmuls.
     """
     n = x.shape[0]
     ho, do, hi, di = w_l.shape
-    from .base import acc_dtype
-
     y = jnp.dot(
         x.reshape(n, hi * di),
         w_l.reshape(ho * do, hi * di).T,
         preferred_element_type=acc_dtype(prec),
+        precision=dot_precision(prec),
     ).astype(prec.compute_dtype)
     return prec.q(y.reshape(n, ho, do))
 
 
 def _scores(h: jnp.ndarray, a: jnp.ndarray, prec: Precision) -> jnp.ndarray:
     """s[v, head] = Σ_dim h[v,head,dim]·a[head,dim] (GAT/src/load_inputs.cc:203-227)."""
-    return prec.q(jnp.einsum("nhd,hd->nh", h, a).astype(prec.compute_dtype))
-
-
-def megakernel_operands(params: dict, prec: Precision) -> dict:
-    """Weight operands for the whole-model megakernels: right-multiplied
-    skip/projection stacks, the per-layer score maps expanded to one
-    [HD, 2H] matmul each, and the head-average ∘ prediction head
-    pre-composed (both linear). Shared by gat.forward and the megakernel
-    ablation harness (bench/ablate_gat_mega.py).
-
-    Besides the per-matrix operands (``skip_w``/``proj_w``/``a_next``,
-    used by the dense kernel and the v1 ablation replica), the production
-    slot megakernel consumes the round-3 FUSED forms: ``skip0_w``
-    (layer-0 skip, applied by the caller as one XLA matmul at pack scale)
-    and ``glue_w`` (per layer l, [skip_{l+1} ‖ proj_{l+1} ‖
-    proj_{l+1}@a_{l+1}] fused into one [HD, 2HD+2H] right-multiplication
-    — one in-kernel matmul instead of three)."""
-    L, H, D = params["proj_w"].shape[:3]
-    hd = H * D
-    cdt = prec.compute_dtype
-    skip_w = (
-        params["skip_w"].reshape(L, hd, hd).transpose(0, 2, 1)
-        .reshape(L * hd, hd).astype(cdt)
-    )
-    proj_w = (
-        params["proj_w"][1:].reshape(L - 1, hd, hd).transpose(0, 2, 1)
-        .reshape((L - 1) * hd, hd).astype(cdt)
-    )
-    eye = jnp.eye(H, dtype=cdt)
-
-    def _amat(a):  # [L-1, H, D] → [(L-1)·HD, H]
-        return (a[:, :, :, None] * eye[None, :, None, :]).reshape(
-            (L - 1) * hd, H
-        ).astype(cdt)
-
-    a_next = jnp.concatenate(
-        [_amat(params["a_src"][1:]), _amat(params["a_tgt"][1:])], axis=1
-    )
-    # Head-average ∘ prediction head, pre-composed (both linear):
-    # pred_hd[h·D+k, t] = pred_w[t, k] / H.
-    pred_hd = jnp.tile(params["pred_w"].T / H, (H, 1)).astype(cdt)
-
-    # Fused glue with the GATHER-PAYLOAD layout (round 3): each layer's
-    # output g = feat @ Gw is laid out [h(0:HD) ‖ s_tgt(HD:HD+H) ‖
-    # zeros(HD+H:PAY) ‖ skip_{l+1}(PAY:PAY+HD) ‖ s_src(PAY+HD:…)] with
-    # PAY = 128, so the next layer's gather operand is g's FIRST 128
-    # lanes — an aligned zero-offset slice. The per-layer in-kernel
-    # [h ‖ s_tgt] lane-concat this replaces measured ~0.28 µs/window/layer
-    # on v5e (bench/ablate_gat_mega.py addcat/staticcat rows); the zero
-    # columns are free (the glue matmul's N padded to 256 either way).
-    pay = max(128, hd + H)
-    glue = []
-    for l in range(L - 1):
-        p_l = proj_w[l * hd : (l + 1) * hd]
-        scat_w = jnp.dot(
-            p_l.astype(jnp.float32),
-            a_next[l * hd : (l + 1) * hd].astype(jnp.float32),
-        ).astype(cdt)  # [HD, 2H] = [a_src ‖ a_tgt]
-        glue.append(
-            jnp.concatenate(
-                [
-                    p_l,  # h
-                    scat_w[:, H:],  # s_tgt — rides the gather payload
-                    jnp.zeros((hd, pay - hd - H), cdt),
-                    skip_w[(l + 1) * hd : (l + 2) * hd],
-                    scat_w[:, :H],  # s_src
-                ],
-                axis=1,
-            )
-        )
-    # Two-window-pairs operands (gat_local_model_pairs): block-diagonal
-    # forms over the 2·HD = 128 paired lane layout. glue2 = per layer
-    # [[proj, 0, skip, 0], [0, proj, 0, skip]] (K=128, N=256 — full MXU
-    # depth vs the single-window K=64 glue); ab = per layer
-    # [blockdiag(a_tgt map ×2) ‖ blockdiag(a_src map ×2)] for the
-    # in-kernel score recomputes; pred2 = blockdiag(pred_hd ×2).
-    z = jnp.zeros((hd, hd), cdt)
-
-    def _ablk(a_l):  # [H, D] → [HD, H] per-head score map, right-mul
-        return (a_l[:, :, None] * eye[:, None, :]).reshape(hd, H).astype(cdt)
-
-    zh = jnp.zeros((hd, H), cdt)
-    glue2, ab = [], []
-    for l in range(L):
-        at, as_ = _ablk(params["a_tgt"][l]), _ablk(params["a_src"][l])
-        ab.append(jnp.concatenate([
-            jnp.concatenate([at, zh, as_, zh], axis=1),
-            jnp.concatenate([zh, at, zh, as_], axis=1),
-        ], axis=0))  # [2HD, 4H]
-        if l < L - 1:
-            p_l = proj_w[l * hd : (l + 1) * hd]
-            s_l = skip_w[(l + 1) * hd : (l + 2) * hd]
-            glue2.append(jnp.concatenate([
-                jnp.concatenate([p_l, z, s_l, z], axis=1),
-                jnp.concatenate([z, p_l, z, s_l], axis=1),
-            ], axis=0))  # [2HD, 4HD]
-    zt = jnp.zeros_like(pred_hd)
-    pred2 = jnp.concatenate([
-        jnp.concatenate([pred_hd, zt], axis=1),
-        jnp.concatenate([zt, pred_hd], axis=1),
-    ], axis=0)  # [2HD, 2T]
-    return dict(
-        skip_w=skip_w, proj_w=proj_w, a_next=a_next, pred_hd=pred_hd,
-        skip0_w=skip_w[:hd],
-        glue_w=jnp.concatenate(glue, axis=0) if glue else
-        jnp.zeros((0, pay + hd + H), cdt),
-        glue2_w=jnp.concatenate(glue2, axis=0) if glue2 else
-        jnp.zeros((0, 4 * hd), cdt),
-        ab_w=jnp.concatenate(ab, axis=0),
-        pred2_w=pred2,
+    return prec.q(
+        jnp.einsum(
+            "nhd,hd->nh", h, a, precision=dot_precision(prec)
+        ).astype(prec.compute_dtype)
     )
 
 
@@ -200,279 +79,29 @@ def forward(
     s_tgt = _scores(h, params["a_tgt"][0], prec)
 
     halo = halo_mode(batch, edge_axis)
-    local = "loc_ell" in batch and prec.fixed is None and (
-        edge_axis is None or halo
-    )
-    # Dest-major slot layout (single-chip default): no scatter matmul, no
-    # score gather, softmax normalised in-kernel (gat_local_message_slots).
-    # Under halo sharding it engages only when nothing spills (no spill ⇒
-    # no cross-chip edges ⇒ every slot gather is chip-local).
-    slots_mode = "slot_src" in batch and prec.fixed is None and (
-        edge_axis is None
-        or (halo and batch["slot_spill"].shape[-1] == 0)
-    )
-    if local:
-        P = batch["loc_ulocal"].shape[0]
-        window, k_blocks = _base.ell_geometry(batch)
-        has_spill = u.shape[0] > P
-    if slots_mode:
-        window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
-        sp = batch["slot_spill"]
-        has_spill = sp.shape[-1] > 0
-        if has_spill:
-            sp_mask = batch["slot_spill_mask"]
-            sp_u = jnp.where(sp_mask, u[sp], n - 1)
-            sp_v = jnp.where(sp_mask, v[sp], n - 1)
-
     inter = [h]
     out_feat = None
-    if (
-        slots_mode and not has_spill and not return_intermediates
-        and "pool_gl" in batch
-    ):
-        # Whole-model megakernel: all L layers + glue in ONE pallas call
-        # (gat_local_model_slots) — the slot one-hot gather is built once
-        # and reused per layer, and no inter-layer tensor touches HBM.
-        from ..ops.pallas.local_layer import (
-            gat_local_model_dense, gat_local_model_slots,
-        )
-
-        # Opt-in dense-attention variant (rank-1 score broadcast over a
-        # [W, W] multiplicity mask, per-head [W, W]@[W, D] aggregation —
-        # no feature gather). Read at trace time; pending TPU measurement.
-        dense = _os.environ.get("FLOWGNN_GAT_DENSE", "0") == "1"
-        # Two-window lane packing (gat_local_model_pairs): two 64-lane
-        # windows share each 128-lane tile; scores recomputed off-payload.
-        # DEFAULT since round 5 — measured 0.73 vs 0.95 µs/graph (24.1× vs
-        # 18.5× U50) on interleaved whole-dataset molhiv runs (BENCH.md).
-        pairs = (
-            _os.environ.get("FLOWGNN_GAT_PAIRS", "1") == "1" and not dense
-        )
-        model_kernel = gat_local_model_dense if dense else gat_local_model_slots
-
-        ops = megakernel_operands(params, prec)
-        if pairs:
-            from ..ops.pallas.local_layer import gat_local_model_pairs
-            from .base import acc_dtype
-
-            skip0 = jnp.dot(
-                prev.reshape(n, H * D), ops["skip0_w"],
-                preferred_element_type=acc_dtype(prec),
-            ).astype(prec.compute_dtype)
-            prefix = _base.slot_prefix_caps(batch, n_slots)
-            pool = gat_local_model_pairs(
-                batch["slot_pstack"] if prefix else batch["slot_stack"],
-                h.reshape(n, H * D), skip0,
-                ops["glue2_w"], ops["ab_w"],
-                jnp.asarray(batch["pool_gl"]), ops["pred2_w"],
-                window, n_slots, H, L, _base.POOL_GMAX,
-                prefix_caps=prefix,
-            )
-            pool = _base.pool_gather(pool, edge_axis if halo else None)
-            return _base.pool_finish(pool, batch, params["pred_b"], prec)
-        if dense:
-            pool = model_kernel(
-                batch["slot_stack"], h.reshape(n, H * D),
-                prev.reshape(n, H * D),
-                jnp.concatenate([s_src, s_tgt], axis=1),
-                ops["skip_w"], ops["proj_w"], ops["a_next"],
-                jnp.asarray(batch["pool_gl"]), ops["pred_hd"],
-                window, n_slots, H, L, _base.POOL_GMAX,
-            )
-        else:
-            # Fused glue (see gat_local_model_slots). Layer-0's skip term
-            # runs as one XLA matmul at pack scale and rides the feature
-            # tile in place of prev0.
-            from .base import acc_dtype
-
-            skip0 = jnp.dot(
-                prev.reshape(n, H * D), ops["skip0_w"],
-                preferred_element_type=acc_dtype(prec),
-            )
-            # Degree-sorted prefix layout when available (as_batch builds
-            # it for no-spill slot buckets): ~40% less gather M.
-            prefix = _base.slot_prefix_caps(batch, n_slots)
-            pool = model_kernel(
-                batch["slot_pstack"] if prefix else batch["slot_stack"],
-                h.reshape(n, H * D), skip0,
-                jnp.concatenate([s_src, s_tgt], axis=1),
-                ops["glue_w"],
-                jnp.asarray(batch["pool_gl"]), ops["pred_hd"],
-                window, n_slots, H, L, _base.POOL_GMAX,
-                wps=int(_os.environ.get("FLOWGNN_GAT_WPS", "1")),
-                prefix_caps=prefix,
-            )
-        pool = _base.pool_gather(pool, edge_axis if halo else None)
-        return _base.pool_finish(pool, batch, params["pred_b"], prec)
-    for l in range(L if out_feat is None else 0):
-        if slots_mode:
-            from ..ops.pallas.local_layer import gat_local_message_slots
-
-            if has_spill:
-                raw_sp = jnp.take(s_src, sp_v, axis=0) + jnp.take(
-                    s_tgt, sp_u, axis=0
-                )
-                sc_sp = jnp.exp(
-                    jnp.where(raw_sp < 0, raw_sp * LEAKY_SLOPE, raw_sp)
-                ) * (sp_v < n - 1)[:, None].astype(prec.compute_dtype)
-                h_sp = _base.spill_gather(
-                    h.reshape(n, H * D), sp_u, batch, n
-                )
-                sp_both = _base.spill_segment_sum(
-                    jnp.concatenate(
-                        [jnp.repeat(sc_sp, D, axis=1) * h_sp, sc_sp], axis=1
-                    ),
-                    sp_v, batch, n,
-                )
-                both = gat_local_message_slots(
-                    batch["slot_stack"], h.reshape(n, H * D), s_src, s_tgt,
-                    window, n_slots, H, divide=False,
-                ) + sp_both
-                msg = prec.q(both[:, : H * D]).reshape(n, H, D)
-                denom = both[:, H * D :]
-                msg = prec.q(
-                    msg / jnp.where(denom == 0, 1, denom)[:, :, None]
-                )
-            else:
-                msg = prec.q(
-                    gat_local_message_slots(
-                        batch["slot_stack"], h.reshape(n, H * D),
-                        s_src, s_tgt, window, n_slots, H, divide=True,
-                    )
-                ).reshape(n, H, D)
-            skip = _project(params["skip_w"][l], prev, prec)
-            if l != L - 1:
-                feat = msg + skip
-                feat = prec.q(jnp.where(feat <= 0, jnp.exp(feat) - 1, feat))
-                prev = feat
-                h = _project(params["proj_w"][l + 1], feat, prec)
-                s_src = _scores(h, params["a_src"][l + 1], prec)
-                s_tgt = _scores(h, params["a_tgt"][l + 1], prec)
-                inter.append(h)
-            else:
-                out_feat = prec.q((msg + skip).sum(axis=1) / H)
-            continue
-        if local:
-            from ..ops.pallas.local_layer import gat_local_message_ell
-
-            if has_spill:
-                if halo:
-                    # One exchange ships h and s_tgt together for the spill
-                    # gathers; pad spill lanes target the trash row (= n) and
-                    # are sliced off by the reduction, so no masking is needed.
-                    ext = halo_exchange(
-                        jnp.concatenate([h.reshape(n, H * D), s_tgt], axis=1),
-                        batch, edge_axis,
-                    )
-                    s_tgt_src = ext[:, H * D :]
-                    h_src_flat = ext[:, : H * D]
-                else:
-                    s_tgt_src = s_tgt
-                    h_src_flat = h.reshape(n, H * D)
-                raw_sp = jnp.take(s_src, v[P:], axis=0) + jnp.take(
-                    s_tgt_src, u[P:], axis=0
-                )
-                sc_sp = jnp.exp(
-                    jnp.where(raw_sp < 0, raw_sp * LEAKY_SLOPE, raw_sp)
-                )
-                # Mask pad spill lanes (u == v == pad node would score 1).
-                pad_cut = n if halo else n - 1
-                sc_sp = sc_sp * (v[P:] < pad_cut)[:, None].astype(sc_sp.dtype)
-                h_sp = (
-                    jnp.take(h_src_flat, u[P:], axis=0) if halo
-                    else _base.spill_gather(h_src_flat, u[P:], batch, n)
-                )
-                sp_vals = jnp.concatenate(
-                    [jnp.repeat(sc_sp, D, axis=1) * h_sp, sc_sp], axis=1
-                )
-                sp_both = (
-                    segment_sum(sp_vals, v[P:], n + 1)[:n]
-                    if halo
-                    else _base.spill_segment_sum(sp_vals, v[P:], batch, n)
-                )
-            else:
-                sp_both = None
-            if l != L - 1 and FUSE_LAYERS:
-                # Fully fused layer: softmax divide, skip-proj, ELU and the
-                # NEXT layer's projection + scores all run in the kernel
-                # epilogue (ops/pallas/local_layer.py:gat_local_layer_ell)
-                # — none of the [n, H·D] glue tensors round-trip to HBM.
-                from ..ops.pallas.local_layer import gat_local_layer_ell
-
-                eye = jnp.eye(H, dtype=prec.compute_dtype)
-                a_mat = jnp.concatenate(
-                    [
-                        (params["a_src"][l + 1][:, :, None] * eye[:, None, :])
-                        .reshape(H * D, H),
-                        (params["a_tgt"][l + 1][:, :, None] * eye[:, None, :])
-                        .reshape(H * D, H),
-                    ],
-                    axis=1,
-                ).astype(prec.compute_dtype)
-                fused_out = gat_local_layer_ell(
-                    batch["loc_ulocal"], batch["loc_vlocal"],
-                    h.reshape(n, H * D), s_src, s_tgt,
-                    prev.reshape(n, H * D),
-                    sp_both if sp_both is not None
-                    else jnp.zeros((n, H * D + H), prec.compute_dtype),
-                    params["skip_w"][l].reshape(H * D, H * D),
-                    params["proj_w"][l + 1].reshape(H * D, H * D),
-                    a_mat, window, k_blocks, H,
-                )
-                h = prec.q(fused_out[:, : H * D]).reshape(n, H, D)
-                prev = prec.q(fused_out[:, H * D : 2 * H * D]).reshape(n, H, D)
-                s_src = prec.q(fused_out[:, 2 * H * D : 2 * H * D + H])
-                s_tgt = prec.q(fused_out[:, 2 * H * D + H :])
-                inter.append(h)
-                continue
-            raw_lanes = None
-            if RAW_SCORES:
-                if halo:
-                    s_tgt_u = (
-                        s_tgt_src if has_spill
-                        else halo_exchange(s_tgt, batch, edge_axis)
-                    )
-                else:
-                    s_tgt_u = s_tgt
-                raw_lanes = jnp.take(s_src, v[:P], axis=0) + jnp.take(
-                    s_tgt_u, u[:P], axis=0
-                )
-            both = gat_local_message_ell(
-                batch["loc_ulocal"], batch["loc_vlocal"],
-                h.reshape(n, H * D), s_src, s_tgt,
-                window, k_blocks, H, raw=raw_lanes,
-            )
-            if sp_both is not None:
-                both = both + sp_both
-            msg = prec.q(both[:, : H * D]).reshape(n, H, D)
-            denom = both[:, H * D :]
-        elif halo_mode(batch, edge_axis):
+    for l in range(L):
+        if halo:
             # One exchange per layer ships h and s_tgt together (both are
             # gathered by sender); s_src is gathered by receiver → local.
             ext = halo_exchange(
                 jnp.concatenate([h.reshape(n, H * D), s_tgt], axis=1),
                 batch, edge_axis,
             )
-            h_u = jnp.take(ext[:, : H * D], u, axis=0)
-            raw = jnp.take(s_src, v, axis=0) + jnp.take(ext[:, H * D :], u, axis=0)
-            score = prec.q(jnp.exp(jnp.where(raw < 0, raw * LEAKY_SLOPE, raw)))
-            scored = (score[:, :, None] * h_u.reshape(-1, H, D)).reshape(-1, H * D)
-            both = edge_segment_sum(
-                jnp.concatenate([scored, score], axis=1), batch, edge_axis
-            )
-            msg = both[:, : H * D].reshape(n, H, D)
-            denom = both[:, H * D :]
+            h_src, s_tgt_src = ext[:, : H * D], ext[:, H * D :]
         else:
-            raw = jnp.take(s_src, v, axis=0) + jnp.take(s_tgt, u, axis=0)  # [E, H]
-            score = prec.q(jnp.exp(jnp.where(raw < 0, raw * LEAKY_SLOPE, raw)))
-            # One fused reduction: [E, H·D] scored features ++ [E, H] scores,
-            # so the Pallas path scatters both in a single kernel pass.
-            scored = (score[:, :, None] * jnp.take(h, u, axis=0)).reshape(-1, H * D)
-            both = edge_segment_sum(
-                jnp.concatenate([scored, score], axis=1), batch, edge_axis
-            )
-            msg = both[:, : H * D].reshape(n, H, D)
-            denom = both[:, H * D :]
+            h_src, s_tgt_src = h.reshape(n, H * D), s_tgt
+        raw = jnp.take(s_src, v, axis=0) + jnp.take(s_tgt_src, u, axis=0)  # [E, H]
+        score = prec.q(jnp.exp(jnp.where(raw < 0, raw * LEAKY_SLOPE, raw)))
+        h_u = jnp.take(h_src, u, axis=0).reshape(-1, H, D)
+        # One fused reduction: [E, H·D] scored features ++ [E, H] scores.
+        scored = (score[:, :, None] * h_u).reshape(-1, H * D)
+        both = edge_segment_sum(
+            jnp.concatenate([scored, score], axis=1), batch, edge_axis
+        )
+        msg = both[:, : H * D].reshape(n, H, D)
+        denom = both[:, H * D :]
         # Pad nodes receive no edges; keep the division defined.
         msg = prec.q(msg / jnp.where(denom == 0, 1, denom)[:, :, None])
         skip = _project(params["skip_w"][l], prev, prec)
@@ -487,9 +116,7 @@ def forward(
         else:
             out_feat = prec.q((msg + skip).sum(axis=1) / H)  # head average
 
-    h_graph = mean_pool(
-        out_feat, batch, prec, edge_axis if halo_mode(batch, edge_axis) else None
-    )
+    h_graph = mean_pool(out_feat, batch, prec, edge_axis if halo else None)
     out = linear(h_graph, params["pred_w"], params["pred_b"], prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

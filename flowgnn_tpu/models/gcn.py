@@ -19,8 +19,6 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.segment import segment_sum
-from . import base as _base
 from .base import (
     atom_embed, bond_embed, edge_segment_sum, gather_sources, halo_exchange,
     halo_mode, linear, mean_pool, out_degree, relu,
@@ -38,7 +36,6 @@ def forward(
     edge_axis: str | None = None,
 ):
     u, v = batch["senders"], batch["receivers"]
-    n = batch["node_feat"].shape[0]
     L = params["conv_w"].shape[0]
 
     deg = out_degree(batch, edge_axis).astype(prec.compute_dtype)
@@ -47,27 +44,7 @@ def forward(
     # dis is layer-constant: in halo mode one boundary-row exchange covers
     # all layers (sender-side gathers use the extended space).
     dis_src = halo_exchange(dis[:, None], batch, edge_axis)[:, 0] if halo else dis
-    # Graph-local ELL kernel path: norms are gathered in-window, so the
-    # per-edge norm array is only needed for the spill tail. Engages per
-    # shard under halo sharding too (layout from parallel/halo.py).
-    local = "loc_ell" in batch and prec.fixed is None and (
-        edge_axis is None or halo
-    )
-    if local:
-        from ..core.features import BOND_FEATURE_OFFSETS
-
-        P = batch["loc_ulocal"].shape[0]
-        window, k_blocks = _base.ell_geometry(batch)
-        has_spill = u.shape[0] > P
-        attr_off = (
-            batch["edge_attr"][:P] + jnp.asarray(BOND_FEATURE_OFFSETS)[None, :]
-        )
-        if has_spill:
-            norm_spill = prec.q(
-                (jnp.take(dis_src, u[P:]) * jnp.take(dis, v[P:]))[:, None]
-            )
-    else:
-        norm = prec.q((jnp.take(dis_src, u) * jnp.take(dis, v))[:, None])
+    norm = prec.q((jnp.take(dis_src, u) * jnp.take(dis, v))[:, None])
 
     def bn(x, l):
         s = jnp.sqrt(params["bn_var"][l] + BN_EPS)
@@ -83,159 +60,16 @@ def forward(
     h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
     m = jnp.zeros_like(h)
     inter = [h]
-    # Dest-major slot megakernel (round 5, VERDICT r4 #3): no scatter
-    # matmul, compacted prefix lanes, dis_u riding the gather payload.
-    # Single-chip no-spill prefix buckets only.
-    if (
-        "slot_meta" in batch and "pool_gl" in batch and prec.fixed is None
-        and not return_intermediates and edge_axis is None
-        and batch["slot_spill"].shape[-1] == 0
-    ):
-        from ..ops.pallas.local_layer import gcn_local_model_slots
-
-        dt = prec.compute_dtype
-        h0c = linear(h, params["conv_w"][0], params["conv_b"][0], prec)
-        s_all = jnp.sqrt(params["bn_var"].astype(jnp.float32) + BN_EPS)
-        alphas = (params["bn_weight"] / s_all).astype(dt)
-        betas = (params["bn_bias"] - params["bn_mean"] * alphas).astype(dt)
-        d = h0c.shape[1]
-        wn_all = jnp.concatenate(
-            [params["conv_w"][l + 1].T for l in range(L - 1)], axis=0
-        )
-        window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
-        pool = gcn_local_model_slots(
-            jnp.asarray(batch["slot_meta"]), h0c, dis,
-            jnp.asarray(batch["pool_gl"]),
-            params["edge_embedding"].reshape(-1, d).astype(dt),
-            params["root_emb"], alphas, betas,
-            wn_all, params["conv_b"][1:],
-            params["pred_w"].T.astype(dt),
-            window, n_slots, L, _base.POOL_GMAX,
-            prefix_caps=_base.slot_prefix_caps(batch, n_slots),
-            wps=_base.slot_wps("gcn", window),
-        )
-        return _base.pool_finish(pool, batch, params["pred_b"], prec)
-    if local and not has_spill:
-        # No-spill fast path: after the first conv, each layer (norm-scaled
-        # message gather, root-emb tail, folded BatchNorm, ReLU and the NEXT
-        # conv matmul) runs as ONE kernel pass; the final kernel returns the
-        # no-ReLU tail for pooling — see
-        # ops/pallas/local_layer.py:gcn_local_layer_ell.
-        from ..ops.pallas.local_layer import gcn_local_layer_ell
-
-        dt = prec.compute_dtype
-        h = linear(h, params["conv_w"][0], params["conv_b"][0], prec)
-        inter.append(h)
-        if (
-            k_blocks == 1 and not return_intermediates
-            and "pool_gl" in batch and (edge_axis is None or halo)
-        ):
-            # Per-shard megakernel under halo too (no spill ⇒ chip-local);
-            # pool partials complete with one all_gather (base.pool_gather).
-            # Whole-model megakernel: all L fused layers + in-kernel
-            # finalize in ONE pallas call (gcn_local_model) — edge
-            # multi-hot, one-hots and per-edge source norms built once,
-            # h in VMEM, prediction pooled per window.
-            from ..ops.pallas.local_layer import gcn_local_model
-
-            s_all = jnp.sqrt(params["bn_var"].astype(jnp.float32) + BN_EPS)
-            alphas = (params["bn_weight"] / s_all).astype(dt)
-            betas = (
-                params["bn_bias"] - params["bn_mean"] * alphas
-            ).astype(dt)
-            d = h.shape[1]
-            wn_all = jnp.concatenate(
-                [params["conv_w"][l + 1].T for l in range(L - 1)], axis=0
-            )
-            pool = gcn_local_model(
-                attr_off, batch["loc_ulocal"], batch["loc_vlocal"],
-                h, dis, jnp.asarray(batch["pool_gl"]),
-                params["edge_embedding"].reshape(-1, d).astype(dt),
-                params["root_emb"], alphas, betas,
-                wn_all, params["conv_b"][1:],
-                params["pred_w"].T.astype(dt),
-                window, L, _base.POOL_GMAX,
-            )
-            pool = _base.pool_gather(pool, edge_axis if halo else None)
-            return _base.pool_finish(pool, batch, params["pred_b"], prec)
-        for l in range(L):
-            final = l == L - 1
-            s = jnp.sqrt(
-                params["bn_var"][l].astype(jnp.float32) + BN_EPS
-            )
-            alpha = (params["bn_weight"][l] / s).astype(dt)
-            beta = (
-                params["bn_bias"][l] - params["bn_mean"][l] * alpha
-            ).astype(dt)
-            h = prec.q(
-                gcn_local_layer_ell(
-                    attr_off,
-                    params["edge_embedding"][l].astype(dt),
-                    batch["loc_ulocal"], batch["loc_vlocal"], h, dis,
-                    params["root_emb"][l][None, :],
-                    alpha[None, :], beta[None, :],
-                    None if final else params["conv_w"][l + 1].T,
-                    None if final else params["conv_b"][l + 1][None, :],
-                    window, k_blocks,
-                )
-            )
-            if not final:
-                inter.append(h)
-        a = h
-        h_graph = mean_pool(
-            a, batch, prec, edge_axis if halo_mode(batch, edge_axis) else None
-        )
-        out = linear(h_graph, params["pred_w"], params["pred_b"], prec)
-        if return_intermediates:
-            return out, {"layers": inter, "h_graph": h_graph}
-        return out
     for l in range(L):
         a = h if l == 0 else relu(tail(m, h, l - 1))
         h = linear(a, params["conv_w"][l], params["conv_b"][l], prec)
-        if local:
-            from ..ops.pallas.local_layer import gcn_local_message_ell
-
-            # Issue the boundary-row exchange FIRST: the message kernel has
-            # no data edge into it, so XLA overlaps the all_to_all with the
-            # window-local aggregation (SURVEY §5; the spill term folds in
-            # before the nonlinear tail). test_halo_overlap_independence.
-            hsrc = (
-                halo_exchange(h, batch, edge_axis) if halo and has_spill
-                else h
-            )
-            m_loc = gcn_local_message_ell(
-                attr_off,
-                params["edge_embedding"][l].astype(prec.compute_dtype),
-                batch["loc_ulocal"], batch["loc_vlocal"], h, dis,
-                window, k_blocks,
-            )
-            if has_spill:
-                ee_spill = bond_embed(
-                    params["edge_embedding"][l], batch["edge_attr"][P:], prec
-                )
-                h_sp = (
-                    jnp.take(hsrc, u[P:], axis=0) if halo
-                    else _base.spill_gather(h, u[P:], batch, n)
-                )
-                spill_msg = norm_spill * relu(h_sp + ee_spill)
-                m_spill = (
-                    segment_sum(spill_msg, v[P:], n + 1)[:n]
-                    if halo
-                    else _base.spill_segment_sum(spill_msg, v[P:], batch, n)
-                )
-                m = prec.q(m_loc + m_spill)
-            else:
-                m = prec.q(m_loc)
-        else:
-            ee = bond_embed(params["edge_embedding"][l], batch["edge_attr"], prec)
-            msg = norm * relu(gather_sources(h, batch, edge_axis) + ee)
-            m = prec.q(edge_segment_sum(msg, batch, edge_axis))
+        ee = bond_embed(params["edge_embedding"][l], batch["edge_attr"], prec)
+        msg = norm * relu(gather_sources(h, batch, edge_axis) + ee)
+        m = prec.q(edge_segment_sum(msg, batch, edge_axis))
         inter.append(h)
 
     a = tail(m, h, L - 1)  # final tail has no ReLU (GCN/src/finalize.cc:88-96)
-    h_graph = mean_pool(
-        a, batch, prec, edge_axis if halo_mode(batch, edge_axis) else None
-    )
+    h_graph = mean_pool(a, batch, prec, edge_axis if halo else None)
     out = linear(h_graph, params["pred_w"], params["pred_b"], prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

@@ -1,4 +1,4 @@
-"""GIN / GIN-VN over packed batches (TPU-native formulation).
+"""GIN / GIN-VN over packed batches.
 
 Math reproduced (see reference/oracles.py:gin_forward for citations):
 message m[v] = Σ_{u→v} relu(h_u + ee_l); update h' = MLP_l((1+ε)h + m) with
@@ -11,11 +11,10 @@ GIN-VN is the same program over virtual-node-augmented graphs
 production transform is the ANALYTIC variant (add_virtual_node_analytic):
 the VN star's 2N zero-attr edges all share one constant edge embedding e0,
 so its messages factor into a per-graph pool (m[vn] = Σ_real relu(h_v+e0))
-plus a per-graph broadcast (m[real v] += relu(h_vn+e0)) — computed with the
-in-kernel pool one-hot (megakernel) or a segment pool (fallbacks,
-``_vn_message``) instead of materialized edges. Same math, but the VN hub
-in-degree (the one edge load that grows with graph size — it alone forced
-the hep10k spill path) disappears from the edge stream.
+plus a per-graph broadcast (m[real v] += relu(h_vn+e0)) — computed with a
+segment pool (``_vn_message``) instead of materialized edges. Same math,
+but the VN hub in-degree (the one edge load that grows with graph size)
+disappears from the edge stream.
 
 The FPGA drops ε (never bound to the kernel — GIN/src/host.cc:185-200), so
 ``fpga_eps=True`` (default) zeroes it for device parity; ``False`` restores
@@ -44,16 +43,15 @@ from .base import (
 def _vn_message(
     h, table_l, batch: dict, prec: Precision, edge_axis: str | None = None
 ) -> jnp.ndarray:
-    """Analytic VN star messages, XLA fallback form (spill buckets, halo
-    shards, plain/fixed paths): one segment pool over graph ids + one row
+    """Analytic VN star messages: one segment pool over graph ids + one row
     broadcast back — e0 is the (0,0,0)-attr bond embedding every star edge
     shares (GIN-VN/src/host_load.cc:137-153). Pad/gap rows belong to the
     pad graph, so their contributions land in (and return from) a row
     nothing reads — same invariant as every other per-node op.
 
-    Under halo sharding a graph may straddle chip shards (unaligned
-    packing), so the per-graph partials are completed with one [G+1, 2D]
-    psum over the edge axis — O(G·D) bytes, like the readout psum, NOT the
+    Under halo sharding a graph may straddle chip shards, so the
+    per-graph partials are completed with one [G+1, 2D] psum over the edge
+    axis — O(G·D) bytes, like the readout psum, NOT the
     O(N·D) the halo layout exists to avoid. (The replicated edge-sharded
     legacy path holds full node arrays per chip; no collective there.)"""
     ee0 = bond_embed(table_l, jnp.zeros((1, 3), jnp.int32), prec)  # [1, D]
@@ -78,240 +76,31 @@ def forward(
     fpga_eps: bool = True,
     return_intermediates: bool = False,
     edge_axis: str | None = None,
-    fused: bool = False,
-    wps_key: str = "gin",
 ):
     """``edge_axis``: mesh axis name when edges are sharded across chips
-    (partial per-chip messages all-reduced over ICI — SURVEY.md §2.4).
-    ``fused``: run scatter+MLP in one Pallas kernel (opt-in experiment)."""
-    u, v = batch["senders"], batch["receivers"]
-    n = batch["node_feat"].shape[0]
+    (partial per-chip messages all-reduced over the device interconnect —
+    SURVEY.md §2.4)."""
     L = params["mlp1_w"].shape[0]
     eps = jnp.zeros(L, prec.compute_dtype) if fpga_eps else params["eps"]
-
-    # The fused kernel (scatter + MLP epilogue in one VMEM pass) is opt-in:
-    # measured on v5e it matches the split path (grid overhead dominates at
-    # these dims) while compiling ~9x slower — see BENCH.md.
-    fused = (
-        fused and "blk_vlocal" in batch and edge_axis is None
-        and prec.fixed is None and "vn_mask" not in batch
-    )
-    # The graph-local fully fused path (gather+message+scatter+MLP in VMEM)
-    # engages automatically when the batch carries the local layout —
-    # including inside a halo-sharded shard_map, where each chip's node
-    # shard is window-aligned and the ELL layout was built per shard
-    # (parallel/halo.py blocked="local_ell"); halo-sourced edges arrive
-    # through the spill tail.
-    halo = halo_mode(batch, edge_axis)
-    local = "loc_ulocal" in batch and prec.fixed is None and (
-        edge_axis is None or (halo and "loc_ell" in batch)
-    )
 
     h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
     inter = [h]
     vn = "vn_mask" in batch  # analytic virtual nodes (GIN-VN)
-    # Dest-major slot megakernel (round 5, VERDICT r4 #3): no scatter
-    # matmul, compacted prefix lanes — the bond embeddings ride the
-    # slot-aligned ``slot_meta`` built by base.as_batch. Single-chip,
-    # no-spill prefix buckets only; everything else falls through to the
-    # ELL/plain paths below.
-    if (
-        "slot_meta" in batch and "pool_gl" in batch and prec.fixed is None
-        and not return_intermediates and edge_axis is None
-        and batch["slot_spill"].shape[-1] == 0
-    ):
-        from ..ops.pallas.local_layer import gin_local_model_slots
-
-        dt = prec.compute_dtype
-        d = h.shape[1]
-        hid = params["mlp1_w"].shape[1]
-        window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
-        pool = gin_local_model_slots(
-            jnp.asarray(batch["slot_meta"]), h,
-            jnp.asarray(batch["pool_gl"]),
-            params["edge_embedding"].reshape(-1, d).astype(dt),
-            params["mlp1_w"].reshape(L * hid, d),
-            params["mlp1_b"],
-            params["mlp2_w"].reshape(L * d, hid),
-            params["mlp2_b"],
-            (1.0 + eps).astype(jnp.float32).reshape(L, 1),
-            params["pred_w"].T.astype(dt),
-            window, n_slots, L, _base.POOL_GMAX,
-            prefix_caps=_base.slot_prefix_caps(batch, n_slots),
-            vn_col=(
-                jnp.asarray(batch["vn_mask"]).astype(dt) if vn else None
-            ),
-            wps=_base.slot_wps("gin-vn" if vn else "gin", window),
-        )
-        return _base.pool_finish(pool, batch, params["pred_b"], prec)
-    ell = local and "loc_ell" in batch
-    if ell:
-        # In-kernel edge embedding: pre-offset the bond features once
-        # ({0,5,11} — GIN/src/message_passing.cc:3).
-        from ..core.features import BOND_FEATURE_OFFSETS
-
-        attr_off = batch["edge_attr"] + jnp.asarray(BOND_FEATURE_OFFSETS)[None, :]
-    if ell and not return_intermediates and "pool_gl" in batch:
-        P = batch["loc_ulocal"].shape[0]
-        window, k_blocks = _base.ell_geometry(batch)
-        if (
-            u.shape[0] == P  # no spill tail
-            and k_blocks == 1
-            and _base.ell_wps(wps_key) == 1
-            and (edge_axis is None or halo)
-        ):
-            # Under halo sharding (no spill ⇒ no cross-chip edges) the
-            # same megakernel runs per shard; one tiled all_gather of the
-            # pool partials is the only collective (base.pool_gather).
-            # Whole-model megakernel: conv stack + in-kernel finalize in
-            # ONE pallas call (ops/pallas/local_layer.py:gin_local_model)
-            # — edge multi-hot and gather/scatter one-hots built once, h
-            # resident in VMEM, prediction pooled per window.
-            from ..ops.pallas.local_layer import gin_local_model
-
-            dt = prec.compute_dtype
-            d = h.shape[1]
-            hid = params["mlp1_w"].shape[1]
-            pool = gin_local_model(
-                attr_off, batch["loc_ulocal"], batch["loc_vlocal"], h,
-                jnp.asarray(batch["pool_gl"]),
-                params["edge_embedding"].reshape(-1, d).astype(dt),
-                params["mlp1_w"].reshape(L * hid, d),
-                params["mlp1_b"],
-                params["mlp2_w"].reshape(L * d, hid),
-                params["mlp2_b"],
-                (1.0 + eps).astype(jnp.float32).reshape(L, 1),
-                params["pred_w"].T.astype(dt),
-                window, L, _base.POOL_GMAX,
-                vn_col=(
-                    jnp.asarray(batch["vn_mask"]).astype(dt) if vn else None
-                ),
-            )
-            pool = _base.pool_gather(pool, edge_axis if halo else None)
-            return _base.pool_finish(pool, batch, params["pred_b"], prec)
     for l in range(L):
-        if ell:
-            P = batch["loc_ulocal"].shape[0]
-            from ..ops.pallas.local_layer import (
-                gin_local_layer_ell, gin_local_message_ell,
-            )
-
-            window, k_blocks = _base.ell_geometry(batch)
-            ee_tab = params["edge_embedding"][l].astype(prec.compute_dtype)
-            if halo and u.shape[0] > P:
-                # Overlap the halo exchange with local aggregation (SURVEY
-                # §5 ≙ the reference's FIFO producer/consumer overlap,
-                # GIN/src/conv_layer.cc:48-57): the boundary-row all_to_all
-                # is issued with NO data edge into the message-only local
-                # kernel, so XLA's latency-hiding scheduler runs them
-                # concurrently; the halo-sourced spill term folds in just
-                # before the (nonlinear) MLP. tests/test_halo.py::
-                # test_halo_overlap_independence pins the independence.
-                hsrc = _base.halo_exchange(h, batch, edge_axis)
-                m_loc = gin_local_message_ell(
-                    attr_off[:P], ee_tab, batch["loc_ulocal"],
-                    batch["loc_vlocal"], h, window, k_blocks,
-                    wps=_base.ell_wps(wps_key),
-                )
-                ee_spill = bond_embed(
-                    params["edge_embedding"][l], batch["edge_attr"][P:], prec
-                )
-                spill_msg = relu(jnp.take(hsrc, u[P:], axis=0) + ee_spill)
-                agg = m_loc + segment_sum(spill_msg, v[P:], n + 1)[:n]
-                if vn:
-                    agg = agg + _vn_message(
-                        h, params["edge_embedding"][l], batch, prec,
-                        edge_axis,
-                    )
-                m = prec.q(agg)
-                act = prec.q(m + (1 + eps[l]) * h)
-                z = relu(
-                    linear(act, params["mlp1_w"][l], params["mlp1_b"][l], prec)
-                )
-                z = linear(z, params["mlp2_w"][l], params["mlp2_b"][l], prec)
-                h = relu(z) if l != L - 1 else z
-                inter.append(h)
-                continue
-            if u.shape[0] > P:  # spill tail present (auto-sized at pack time)
-                ee_spill = bond_embed(
-                    params["edge_embedding"][l], batch["edge_attr"][P:], prec
-                )
-                spill_msg = relu(
-                    _base.spill_gather(h, u[P:], batch, n) + ee_spill
-                )
-                m_spill = _base.spill_segment_sum(spill_msg, v[P:], batch, n)
-            else:
-                m_spill = jnp.zeros_like(h)
-            if vn:
-                # edge_axis passes through so a halo-sharded graph whose
-                # nodes straddle chips but spills no edges still gets its
-                # per-graph VN pool psum-completed (halo_mode gates the
-                # psum, so this is a no-op off the halo path).
-                m_spill = (
-                    m_spill
-                    + _vn_message(
-                        h, params["edge_embedding"][l], batch, prec, edge_axis
-                    )
-                ).astype(h.dtype)
-            h = gin_local_layer_ell(
-                None, batch["loc_ulocal"], batch["loc_vlocal"], h, m_spill,
-                params["mlp1_w"][l], params["mlp1_b"][l],
-                params["mlp2_w"][l], params["mlp2_b"][l],
-                (1.0 + eps[l]).astype(jnp.float32).reshape(1, 1),
-                window, k_blocks,
-                final_relu=l != L - 1,
-                edge_attr=attr_off[:P],
-                ee_table=ee_tab,
-                wps=_base.ell_wps(wps_key),
-            )
-            inter.append(h)
-            continue
         ee = bond_embed(params["edge_embedding"][l], batch["edge_attr"], prec)
-        if local:
-            from ..ops.pallas.local_layer import gin_local_layer
-
-            P = batch["loc_ulocal"].shape[0]
-            spill_msg = relu(jnp.take(h, u[P:], axis=0) + ee[P:])
-            m_spill = segment_sum(spill_msg, v[P:], n)
-            if vn:
-                m_spill = (
-                    m_spill
-                    + _vn_message(h, params["edge_embedding"][l], batch, prec)
-                ).astype(h.dtype)
-            eps1 = (1.0 + eps[l]).astype(jnp.float32).reshape(1, 1)
-            h = gin_local_layer(
-                ee[:P], batch["loc_ulocal"], batch["loc_vlocal"],
-                batch["loc_window"], h, m_spill,
-                params["mlp1_w"][l], params["mlp1_b"][l],
-                params["mlp2_w"][l], params["mlp2_b"][l],
-                eps1, _base.PALLAS_WINDOW, final_relu=l != L - 1,
-            )
-            inter.append(h)
-            continue
         msg = relu(gather_sources(h, batch, edge_axis) + ee)
-        if fused:
-            from ..ops.pallas.fused_layer import gin_layer_fused
-
-            h = gin_layer_fused(
-                msg, batch["blk_vlocal"], batch["blk_window"], h,
-                params["mlp1_w"][l], params["mlp1_b"][l],
-                params["mlp2_w"][l], params["mlp2_b"][l],
-                (1.0 + eps[l]).astype(jnp.float32).reshape(1, 1),
-                _base.PALLAS_WINDOW, final_relu=l != L - 1,
+        agg = edge_segment_sum(msg, batch, edge_axis)
+        if vn:
+            agg = agg + _vn_message(
+                h, params["edge_embedding"][l], batch, prec, edge_axis
             )
-        else:
-            agg = edge_segment_sum(msg, batch, edge_axis)
-            if vn:
-                agg = agg + _vn_message(
-                    h, params["edge_embedding"][l], batch, prec, edge_axis
-                )
-            m = prec.q(agg)
-            act = prec.q(m + (1 + eps[l]) * h)
-            z = relu(linear(act, params["mlp1_w"][l], params["mlp1_b"][l], prec))
-            z = linear(z, params["mlp2_w"][l], params["mlp2_b"][l], prec)
-            if l != L - 1:
-                z = relu(z)
-            h = z
+        m = prec.q(agg)
+        act = prec.q(m + (1 + eps[l]) * h)
+        z = relu(linear(act, params["mlp1_w"][l], params["mlp1_b"][l], prec))
+        z = linear(z, params["mlp2_w"][l], params["mlp2_b"][l], prec)
+        if l != L - 1:
+            z = relu(z)
+        h = z
         inter.append(h)
 
     h_graph = mean_pool(

@@ -13,8 +13,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.segment import segment_max, segment_min, segment_sum
-from . import base as _base
+from ..ops.segment import segment_max, segment_min
 from .base import (
     atom_embed, edge_segment_sum, gather_sources, halo_mode, in_degree,
     linear, mean_pool, out_degree, relu,
@@ -33,7 +32,7 @@ def forward(
     return_intermediates: bool = False,
     edge_axis: str | None = None,
 ):
-    u, v = batch["senders"], batch["receivers"]
+    v = batch["receivers"]
     n = batch["node_feat"].shape[0]
     L = params["conv_w"].shape[0]
     dt = prec.compute_dtype
@@ -48,149 +47,24 @@ def forward(
         jnp.where(log_deg > 0, avg_deg / jnp.where(log_deg > 0, log_deg, 1), 1.0)
     )
 
-    # Dest-major slot path: the Pallas kernel computes all four running
-    # aggregates densely over in-edge slots (ops/pallas/local_layer.py:
-    # pna_local_stats_ell); slot-overflow and window-crossing edges arrive
-    # through the spill tail and are merged with XLA segment ops.
     halo = halo_mode(batch, edge_axis)
-    slots = "slot_src" in batch and prec.fixed is None and (
-        edge_axis is None or halo
-    )
-    if slots:
-        sp = batch["slot_spill"]
-        has_spill = sp.shape[-1] > 0  # auto-sized to 0 when nothing spilled
-        if has_spill:
-            sp_mask = batch["slot_spill_mask"]
-            # Masked-out spill lanes are index-0 duplicates; neutralise them
-            # by routing both endpoints at the discard row (pad node n-1 on
-            # a single chip, the trash row n on a halo shard — never read).
-            dead = n if halo else n - 1
-            sp_u = jnp.where(sp_mask, u[sp], dead)
-            sp_v = jnp.where(sp_mask, v[sp], dead)
-
     h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
     inter = [h]
-    if (
-        slots and not batch["slot_spill"].shape[-1]
-        and not return_intermediates and "pool_gl" in batch
-    ):
-        # Whole-model megakernel: all L conv layers + in-kernel finalize
-        # head in ONE pallas call (ops/pallas/local_layer.py:
-        # pna_local_model) — slot one-hot gathers built once, h resident
-        # in VMEM across layers, readout MLP-1 pooled per window.
-        from ..ops.pallas.local_layer import pna_local_model
-
-        window, n_slots = batch["slot_geom"].shape[-2:]
-        d_out = params["conv_w"].shape[1]
-        w_all = jnp.concatenate(
-            [
-                jnp.concatenate(
-                    [
-                        params["conv_w"][l, :, i].reshape(d_out, -1).T
-                        for i in range(3)
-                    ],
-                    axis=1,
-                )
-                for l in range(L)
-            ],
-            axis=0,
-        )
-        pool = pna_local_model(
-            batch["slot_src"], h,
-            (1.0 / in_deg)[:, 0], t[:, 0], scale[:, 0],
-            w_all, params["conv_b"],
-            jnp.asarray(batch["pool_gl"]),
-            params["mlp1_w"].T.astype(dt),
-            int(window), int(n_slots), L, _base.POOL_GMAX,
-            MAX_INIT, MIN_INIT,
-            prefix_caps=_base.slot_prefix_caps(batch, int(n_slots)),
-            wps=_base.slot_wps("pna", int(window)),
-        )
-        pool = _base.pool_gather(pool, edge_axis if halo else None)
-        z = relu(_base.pool_finish(pool, batch, params["mlp1_b"], prec))
-        z = relu(linear(z, params["mlp2_w"], params["mlp2_b"], prec))
-        return linear(z, params["mlp3_w"], params["mlp3_b"], prec)
     for l in range(L):
         d = h.shape[1]
-        if slots and not has_spill:
-            # No-spill fast path: the whole layer (4-aggregate gather,
-            # mean/std, scaler tower, residual) runs as ONE kernel pass —
-            # see ops/pallas/local_layer.py:pna_local_layer.
-            from ..ops.pallas.local_layer import pna_local_layer
-
-            window, n_slots = batch["slot_geom"].shape[-2:]
-            wl = params["conv_w"][l]  # [D_out, 3, 4, D_in]
-            d_out = wl.shape[0]
-            w_cat = jnp.concatenate(
-                [wl[:, i].reshape(d_out, -1).T for i in range(3)], axis=1
-            )
-            h = prec.q(
-                pna_local_layer(
-                    batch["slot_src"], h,
-                    (1.0 / in_deg)[:, 0], t[:, 0], scale[:, 0],
-                    w_cat, params["conv_b"][l][None, :],
-                    int(window), int(n_slots), MAX_INIT, MIN_INIT,
-                )
-            )
-            inter.append(h)
-            continue
-        if slots:
-            from ..ops.pallas.local_layer import pna_local_stats_ell
-
-            window, n_slots = batch["slot_geom"].shape[-2:]
-            # Exchange first — the stats kernel is independent of it, so
-            # the all_to_all overlaps the local aggregation (SURVEY §5;
-            # test_halo_overlap_independence).
-            hsrc = (
-                _base.halo_exchange(h, batch, edge_axis)
-                if halo and has_spill else h
-            )
-            # Kernel arg order: (min-accumulator seed, max-accumulator seed)
-            # = (upper extreme, lower extreme) — PNA/src/util.h ap_fixed_min/max.
-            st = pna_local_stats_ell(
-                batch["slot_src"], h, int(window), int(n_slots),
-                MAX_INIT, MIN_INIT,
-            )
-            s, s2 = st[:, :d], st[:, d : 2 * d]
-            mn = st[:, 2 * d : 3 * d]
-            mx = st[:, 3 * d :]
-            if has_spill:
-                x_sp = (
-                    jnp.take(hsrc, sp_u, axis=0) if halo
-                    else _base.spill_gather(h, sp_u, batch, n)
-                )
-                ns = n + 1 if halo else n
-                if halo:
-                    ss = segment_sum(
-                        jnp.concatenate([x_sp, x_sp * x_sp], axis=1),
-                        sp_v, ns,
-                    )[:n]
-                else:
-                    # Sum channels ride the windowed-scatter kernel (the
-                    # running min/max have no one-hot-matmul form and stay
-                    # XLA — they are the minority of the spill cost).
-                    ss = _base.spill_segment_sum(
-                        jnp.concatenate([x_sp, x_sp * x_sp], axis=1),
-                        sp_v, batch, n,
-                    )
-                s = s + ss[:, :d]
-                s2 = s2 + ss[:, d:]
-                mn = jnp.minimum(mn, segment_min(x_sp, sp_v, ns, MAX_INIT)[:n])
-                mx = jnp.maximum(mx, segment_max(x_sp, sp_v, ns, MIN_INIT)[:n])
+        x = gather_sources(h, batch, edge_axis)
+        ss = edge_segment_sum(
+            jnp.concatenate([x, x * x], axis=1), batch, edge_axis
+        )
+        s, s2 = ss[:, :d], ss[:, d:]
+        if halo:
+            # Chip-local running min/max over the trash-row segment space
+            # — no pmin/pmax collective on the halo path.
+            mn = segment_min(x, v, n + 1, MAX_INIT)[:n]
+            mx = segment_max(x, v, n + 1, MIN_INIT)[:n]
         else:
-            x = gather_sources(h, batch, edge_axis)
-            ss = edge_segment_sum(
-                jnp.concatenate([x, x * x], axis=1), batch, edge_axis
-            )
-            s, s2 = ss[:, :d], ss[:, d:]
-            if halo_mode(batch, edge_axis):
-                # Chip-local running min/max over the trash-row segment space
-                # — no pmin/pmax collective on the halo path.
-                mn = segment_min(x, v, n + 1, MAX_INIT)[:n]
-                mx = segment_max(x, v, n + 1, MIN_INIT)[:n]
-            else:
-                mn = segment_min(x, v, n, MAX_INIT, edge_axis)
-                mx = segment_max(x, v, n, MIN_INIT, edge_axis)
+            mn = segment_min(x, v, n, MAX_INIT, edge_axis)
+            mx = segment_max(x, v, n, MIN_INIT, edge_axis)
         mean = prec.q(s / in_deg)
         std = prec.q(jnp.sqrt(relu(prec.q(s2 / in_deg) - mean * mean)))
         # [n, 4·dim] in enum order (mean, min, max, std) — PNA/src/dcl.h:29-35.
@@ -198,7 +72,7 @@ def forward(
         # The tower is linear in the stats, so the three scalers distribute:
         #   acc = W_none·stats + t·(W_t·stats) + scale·(W_scale·stats)
         # — three [4D→D] matmuls instead of materialising the [n, 12·D]
-        # scaled-stats tensor (saves ~120 MB of stack copies per layer).
+        # scaled-stats tensor.
         wl = params["conv_w"][l]  # [D_out, 3, 4, D_in]
         d_out = wl.shape[0]
         w_none = wl[:, 0].reshape(d_out, -1)
@@ -213,9 +87,7 @@ def forward(
         h = prec.q(h + relu(acc))
         inter.append(h)
 
-    h_graph = mean_pool(
-        h, batch, prec, edge_axis if halo_mode(batch, edge_axis) else None
-    )
+    h_graph = mean_pool(h, batch, prec, edge_axis if halo else None)
     z = relu(linear(h_graph, params["mlp1_w"], params["mlp1_b"], prec))
     z = relu(linear(z, params["mlp2_w"], params["mlp2_b"], prec))
     out = linear(z, params["mlp3_w"], params["mlp3_b"], prec)

@@ -1,10 +1,10 @@
-"""Segment primitives — the TPU-native replacement for FlowGNN's scatter PEs.
+"""Segment primitives — the replacement for FlowGNN's scatter PEs.
 
 The reference partitions edges across 4 scatter PEs by ``dest % 4`` with
 private message BRAMs so concurrent accumulation is conflict-free
-(GIN/src/load_inputs.cc:127, GIN/src/message_passing.cc:77-150). On TPU the
-same computation is a dense ``segment_sum`` over a packed edge axis: XLA
-lowers sorted-segment reductions onto the VPU, and the padded-edge convention
+(GIN/src/load_inputs.cc:127, GIN/src/message_passing.cc:77-150). Here the
+same computation is a ``segment_sum`` over a packed edge axis, which XLA
+lowers to a scatter (atomic adds on a GPU), and the padded-edge convention
 (pad edges → pad node) keeps every index in bounds with no masking in the hot
 loop.
 
@@ -12,7 +12,7 @@ Cross-chip edge partitioning (SURVEY.md §2.4's mapping of EDGE_PARALLEL) uses
 the same functions with ``axis_name`` set: inside a ``shard_map`` whose edge
 arrays are sharded over that mesh axis, each chip reduces its local edge
 shard and the partial node messages are combined with one XLA collective over
-ICI (psum / pmin / pmax) — the multi-chip analog of the per-PE private
+the device interconnect (psum / pmin / pmax) — the multi-chip analog of the per-PE private
 message buffers being merged.
 
 All functions take ``num_segments`` statically so shapes stay trace-stable.

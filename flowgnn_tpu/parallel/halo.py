@@ -3,16 +3,16 @@
 The reference partitions edges across scatter PEs by destination
 (``pe_id = v % EDGE_PARALLEL`` — GIN/src/load_inputs.cc:127) with a private
 message buffer per PE. SURVEY.md §2.4 maps this across chips as *edge
-partitioning with boundary-node exchange over ICI*, NOT as replicated node
-state + full-array psum (the round-1 fallback, kept in
+partitioning with boundary-node exchange over the device interconnect*,
+NOT as replicated node state + full-array psum (the fallback kept in
 parallel/inference.py): with molecule-sized graphs packed contiguously,
 almost every edge's endpoints land on the same chip, so the only node rows
 that must move are the few that sit on the wrong side of a chip boundary.
 
 Layout built host-side at pack time (this module):
 
-  * the padded node axis (N+1 rows) splits into ``k`` contiguous,
-    window-aligned shards of ``S`` rows — chip i owns rows [i·S, (i+1)·S);
+  * the padded node axis (N+1 rows) splits into ``k`` contiguous shards of
+    ``S`` rows (a multiple of ``window``) — chip i owns rows [i·S, (i+1)·S);
   * every real edge is owned by the chip of its RECEIVER; per-chip edge
     arrays are padded to a static capacity, pad lanes scatter into a
     per-chip trash row (local index S, sliced off after reduction);
@@ -25,8 +25,8 @@ Layout built host-side at pack time (this module):
 
 At run time (models/base.py:halo_exchange) each layer does ONE
 ``lax.all_to_all`` of the [k, H, D] boundary-row buffer — O(k·H·D) bytes
-over ICI instead of the psum path's O(N·D) — and every segment reduction
-stays chip-local. The readout is the single remaining collective (a psum
+over the interconnect instead of the psum path's O(N·D) — and every segment
+reduction stays chip-local. The readout is the single remaining collective (a psum
 of [G+1, D] graph partials, once per model).
 """
 
@@ -68,55 +68,12 @@ def halo_shape(
     return HaloShape(k, s, ec, halo_cap)
 
 
-def halo_batches_uniform(
-    buckets, k: int, blocked: str | None = None, **kw
-) -> list[dict]:
-    """``build_halo_batch`` over a bucket stream, reconciling the
-    content-derived static layout parameters (slot depth, ELL k, spill
-    lanes) to stream-wide maxima so every bucket shares one program
-    signature — the halo analog of ``models.base.as_batches_uniform`` and
-    the prerequisite for ``inference.stack_halo_buckets`` over a
-    data-axis stream of heterogeneous buckets. Window-aligned streams
-    (nothing spills anywhere) pin only the slot/ELL depth, so the
-    whole-model megakernels stay engaged per shard."""
-    hbs = [build_halo_batch(b, k=k, blocked=blocked, **kw) for b in buckets]
-    sigs = {
-        tuple(sorted((n, v.shape, str(v.dtype)) for n, v in hb.items()))
-        for hb in hbs
-    }
-    if len(hbs) < 2 or len(sigs) == 1:
-        return hbs
-    pins: dict = {}
-    if blocked == "local_slots":
-        pins["slots"] = max(hb["slot_geom"].shape[-1] for hb in hbs)
-        pins["spill_lanes"] = max(
-            hb["slot_spill"].shape[-1] for hb in hbs
-        )
-    elif blocked == "local_ell":
-        pins["k_blocks"] = max(hb["loc_ell"].shape[-1] for hb in hbs)
-        pins["spill_lanes"] = max(
-            hb["senders"].shape[-1] - hb["loc_ulocal"].shape[-1]
-            for hb in hbs
-        )
-    if not pins:
-        return hbs
-    return [
-        build_halo_batch(b, k=k, blocked=blocked, **pins, **kw)
-        for b in buckets
-    ]
-
-
 def build_halo_batch(
     packed: PackedGraphs,
     k: int,
     window: int = 128,
     halo_cap: int = DEFAULT_HALO_CAP,
     edge_slack: float = EDGE_SLACK,
-    blocked: str | None = None,
-    k_blocks: int | None = None,
-    spill_cap: int = 4096,
-    slots: int | None = None,
-    spill_lanes: int | None = None,
 ) -> dict:
     """PackedGraphs → per-chip stacked batch dict (leading axis k).
 
@@ -125,21 +82,7 @@ def build_halo_batch(
     receivers [k,Ec] (local space, trash=S), edge_attr [k,Ec,3],
     halo_send_idx [k,k,H], in_deg/out_deg [k,S].
     Replicated keys: n_node, n_edge [G+1].
-
-    ``blocked="local_ell"`` / ``"local_slots"`` additionally builds the
-    graph-local Pallas layout PER SHARD (the chip shards are window-aligned
-    by construction), so the same local kernels that win single-chip run
-    inside shard_map — halo-sourced edges fall out to the spill tail
-    automatically because their extended-space sender index can never share
-    a window with a local receiver. Per-chip edge arrays then become
-    [lanes ‖ spill] like models/base.as_batch's local layouts. The layout
-    window/block sizes follow models.base PALLAS_ELL_*; ``window`` is
-    forced to the ELL window so shard alignment matches the kernel grid.
     """
-    if blocked in ("local_ell", "local_slots"):
-        from ..models.base import PALLAS_ELL_WINDOW
-
-        window = PALLAS_ELL_WINDOW
     shape = halo_shape(
         packed.node_capacity, packed.edge_capacity, k, window, halo_cap,
         edge_slack,
@@ -199,155 +142,13 @@ def build_halo_batch(
             s_ext[rem] = s_rows + j * hcap + slot
         per_chip.append((ei, s_ext, receivers[ei] - i * s_rows))
 
-    extras: dict = {}
-    if blocked == "local_ell":
-        from ..core.blocking import build_local_blocks_ell
-        from ..models.base import PALLAS_ELL_BLOCK
-
-        block = PALLAS_ELL_BLOCK
-        if k_blocks is None:
-            # Build once letting each chip auto-size k, then rebuild only
-            # the chips whose k disagrees with the max (usually none) —
-            # the old probe pass built every layout twice.
-            lbs = [
-                build_local_blocks_ell(
-                    s_ext, r_loc, s_rows + 1, window=window, block=block,
-                    spill_capacity=spill_cap,
-                )
-                for _, s_ext, r_loc in per_chip
-            ]
-            k_blocks = max(lb.k_blocks for lb in lbs)
-            lbs = [
-                lb if lb.k_blocks == k_blocks else build_local_blocks_ell(
-                    s_ext, r_loc, s_rows + 1, window=window, block=block,
-                    k_blocks=k_blocks, spill_capacity=spill_cap,
-                )
-                for lb, (_, s_ext, r_loc) in zip(lbs, per_chip)
-            ]
-        else:
-            lbs = [
-                build_local_blocks_ell(
-                    s_ext, r_loc, s_rows + 1, window=window, block=block,
-                    k_blocks=k_blocks, spill_capacity=spill_cap,
-                )
-                for _, s_ext, r_loc in per_chip
-            ]
-        # The layout is built over s_rows+1 local rows (the +1 is the trash
-        # row), so it carries one extra, always-empty trailing window of pad
-        # lanes. The kernels derive their grid from h.shape[0] == s_rows —
-        # TRIM the trash window's lanes so layout and kernel agree, or every
-        # shard spanning >1 window mis-chunks its lane array (caught by
-        # tests/test_halo.py::test_halo_local_multiwindow_shard).
-        nw_shard = s_rows // window
-        p_full = lbs[0].u_local.shape[0]
-        blk = p_full // ((nw_shard + 1) * lbs[0].k_blocks)
-        p_lanes = nw_shard * lbs[0].k_blocks * blk
-        for lb in lbs:
-            assert not lb.valid[p_lanes:].any(), "trash window held real lanes"
-        # Auto-size the spill tail to the stream's actual crossing-edge
-        # count (max over chips, 8-aligned; 0 when window-aligned packing
-        # leaves nothing to spill) — a statically-empty tail would keep
-        # the whole-model megakernels permanently disengaged per shard.
-        sp_used = max(lb.spill_count for lb in lbs)
-        sp_used = -(-sp_used // 8) * 8 if sp_used else 0
-        if spill_lanes is not None:
-            # Pinned spill width (stream uniformization — see
-            # halo_batches_uniform): must cover this bucket's own tail.
-            assert spill_lanes >= sp_used, (
-                f"pinned spill_lanes {spill_lanes} < required {sp_used}"
-            )
-            sp_used = spill_lanes
-        sh_send = np.zeros((k, p_lanes + sp_used), np.int32)
-        sh_recv = np.full((k, p_lanes + sp_used), s_rows, np.int32)
-        sh_attr = np.zeros(
-            (k, p_lanes + sp_used, edge_attr.shape[1]), np.int32
-        )
-        for i, ((ei, s_ext, r_loc), lb) in enumerate(zip(per_chip, lbs)):
-            val = lb.valid[:p_lanes]
-            perm = lb.edge_perm[:p_lanes]
-            sh_send[i, :p_lanes][val] = s_ext[perm[val]]
-            sh_recv[i, :p_lanes][val] = r_loc[perm[val]]
-            sh_attr[i, :p_lanes][val] = edge_attr[ei[perm[val]]]
-            nsp = lb.spill_count
-            sp = lb.spill[:nsp]
-            sh_send[i, p_lanes : p_lanes + nsp] = s_ext[sp]
-            sh_recv[i, p_lanes : p_lanes + nsp] = r_loc[sp]
-            sh_attr[i, p_lanes : p_lanes + nsp] = edge_attr[ei[sp]]
-        extras["loc_ulocal"] = np.stack([lb.u_local[:p_lanes] for lb in lbs])
-        extras["loc_vlocal"] = np.stack([lb.v_local[:p_lanes] for lb in lbs])
-        # Static-grid marker; trailing dims carry (window, k_blocks) to the
-        # models through shard_map slicing (models/base.py:ell_geometry).
-        extras["loc_ell"] = np.zeros((k, window, k_blocks), np.int32)
-    else:
-        sh_send = np.full((k, ec), 0, np.int32)
-        sh_recv = np.full((k, ec), s_rows, np.int32)  # trash row
-        sh_attr = np.zeros((k, ec, edge_attr.shape[1]), np.int32)
-        for i, (ei, s_ext, r_loc) in enumerate(per_chip):
-            sh_send[i, : ei.size] = s_ext
-            sh_recv[i, : ei.size] = r_loc
-            sh_attr[i, : ei.size] = edge_attr[ei]
-        if blocked == "local_slots":
-            from ..core.blocking import build_local_slots
-            from ..models.base import PALLAS_SLOTS
-
-            # Same trash-window trim as the ELL branch above: the slot
-            # table is built over s_rows+1 rows but the kernels grid over
-            # h.shape[0] == s_rows.
-            nw_shard = s_rows // window
-            keep = nw_shard * window  # rows of the [NW·W, S] table
-            # Auto-size the slot axis to the stream's max LOCAL in-degree
-            # (as_batch does the same single-chip — deeper in-degrees ride
-            # the spill tail).
-            s_needed = 1
-            for _, s_ext, r_loc in per_chip:
-                loc = (s_ext < s_rows) & (s_ext // window == r_loc // window)
-                if loc.any():
-                    s_needed = max(
-                        s_needed,
-                        int(np.bincount(
-                            r_loc[loc], minlength=s_rows + 1
-                        ).max()),
-                    )
-            s_slots = slots or max(1, min(s_needed, PALLAS_SLOTS))
-            slot_u, slot_sp, slot_cnt = [], [], []
-            for ei, s_ext, r_loc in per_chip:
-                us, sp, cnt, _ = build_local_slots(
-                    s_ext, r_loc, s_rows + 1, window=window,
-                    slots=s_slots, spill_capacity=spill_cap,
-                )
-                assert (us[keep:] == window).all(), "trash window had slots"
-                slot_u.append(us[:keep])  # [NW·W, S] per-dest rows
-                slot_sp.append(sp)
-                slot_cnt.append(cnt)
-            # Auto-size the spill tail (max over chips; 0 when clean) so
-            # the slot megakernels can engage per shard.
-            sp_used = max(slot_cnt)
-            sp_used = -(-sp_used // 8) * 8 if sp_used else 0
-            if spill_lanes is not None:
-                assert spill_lanes >= sp_used, (
-                    f"pinned spill_lanes {spill_lanes} < required {sp_used}"
-                )
-                sp_used = spill_lanes
-            extras["slot_src"] = np.stack(slot_u)
-            extras["slot_spill"] = np.stack([sp[:sp_used] for sp in slot_sp])
-            extras["slot_spill_mask"] = np.stack(
-                [np.arange(sp_used) < cnt for cnt in slot_cnt]
-            )
-            extras["slot_geom"] = np.zeros((k, window, s_slots), np.int32)
-            # GAT's stacked-gather layout ([NW·S·W] float column per shard;
-            # exact small integers — bf16 only holds ≤256).
-            import ml_dtypes
-
-            stack_dt = ml_dtypes.bfloat16 if window <= 256 else np.float32
-            extras["slot_stack"] = np.stack(
-                [
-                    np.ascontiguousarray(
-                        us.reshape(nw_shard, window, s_slots)
-                        .transpose(0, 2, 1)
-                    ).reshape(-1).astype(stack_dt)
-                    for us in slot_u
-                ]
-            )
+    sh_send = np.full((k, ec), 0, np.int32)
+    sh_recv = np.full((k, ec), s_rows, np.int32)  # trash row
+    sh_attr = np.zeros((k, ec, edge_attr.shape[1]), np.int32)
+    for i, (ei, s_ext, r_loc) in enumerate(per_chip):
+        sh_send[i, : ei.size] = s_ext
+        sh_recv[i, : ei.size] = r_loc
+        sh_attr[i, : ei.size] = edge_attr[ei]
 
     batch = {
         "node_feat": node_feat,
@@ -361,52 +162,21 @@ def build_halo_batch(
         "n_node": np.asarray(packed.n_node),
         "n_edge": np.asarray(packed.n_edge),
     }
-    batch.update(extras)
     if node_eigen is not None:
         batch["node_eigen"] = node_eigen
     if packed.node_vn is not None:
-        # Analytic-VN flag shards with the node rows; window alignment keeps
-        # each graph (hence its virtual node AND all its real nodes) on one
-        # chip, so the per-shard VN pool/broadcast in models/gin.py is
-        # complete without any collective.
+        # Analytic-VN flag shards with the node rows; a graph that
+        # straddles chips gets its per-graph VN pool psum-completed in
+        # models/gin.py.
         batch["vn_mask"] = pad_nodes(packed.node_vn, False).reshape(k, s_rows)
-    if blocked in ("local_ell", "local_slots"):
-        # In-kernel finalize layout PER SHARD: window-aligned packing keeps
-        # each graph in one window (hence one chip), so the global pool
-        # layout splits cleanly — pool_gl shards with the node rows while
-        # pool_row (global partial-row per graph) replicates; the models
-        # complete the per-shard [NW·GMAX, T] partials with one tiled
-        # all_gather (models/base.py:pool_gather) ≙ the reference keeping
-        # finalize inside the dataflow (GIN/src/finalize.cc:14-115).
-        from ..models.base import pool_layout
-
-        ids = pad_nodes(packed.node_graph, g_cap)
-        real = ids < g_cap
-        aligned = True
-        if real.any():
-            first = np.full(g_cap + 1, n2 - 1, np.int64)
-            last = np.zeros(g_cap + 1, np.int64)
-            np.minimum.at(first, ids, np.arange(n2))
-            np.maximum.at(last, ids, np.arange(n2))
-            gr = np.nonzero(
-                (first <= last)[: g_cap]
-            )[0]
-            aligned = bool(
-                np.all(first[gr] // window == last[gr] // window)
-            )
-        layout = pool_layout(ids, g_cap + 1, window) if aligned else None
-        if layout is not None:
-            gl, row = layout
-            batch["pool_gl"] = np.asarray(gl).reshape(k, s_rows)
-            batch["pool_row"] = row  # global — replicated across chips
     return batch
 
 
 def halo_bytes_per_layer(shape: HaloShape, dim: int, dtype_bytes: int = 4) -> int:
-    """ICI bytes moved per layer per chip by the halo exchange."""
+    """Interconnect bytes moved per layer per chip by the halo exchange."""
     return shape.k * shape.halo_cap * dim * dtype_bytes
 
 
 def psum_bytes_per_layer(node_capacity: int, dim: int, dtype_bytes: int = 4) -> int:
-    """ICI bytes the round-1 full-array psum path moves per layer per chip."""
+    """Interconnect bytes the full-array psum path moves per layer per chip."""
     return (node_capacity + 1) * dim * dtype_bytes

@@ -7,14 +7,15 @@
     communication),
   * within each bucket the edge arrays are additionally split across the
     'edge' axis; every segment reduction inside the model then produces
-    partial node messages that one ``psum``/``pmin``/``pmax`` over ICI
-    completes (ops/segment.py) — the multi-chip mapping of the reference's
+    partial node messages that one ``psum``/``pmin``/``pmax`` over the
+    device interconnect completes (ops/segment.py) — the multi-chip mapping of the reference's
     EDGE_PARALLEL scatter PEs with private message buffers
     (GIN/src/load_inputs.cc:127, SURVEY.md §2.4).
 
 Node/graph arrays are replicated across 'edge', so the update matmuls are
 computed redundantly per edge-shard — the right trade at these model sizes
-(dim ≤ 100) where the message reduction, not the MXU, is the scaling limit.
+(dim ≤ 100) where the message reduction, not the matmuls, is the scaling
+limit.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def sharded_forward(
 
     ``forward`` is a model forward from models/*; edges are sharded over the
     'edge' mesh axis and the model's internal segment reductions complete
-    them with ICI collectives (edge_axis='edge').
+    them with interconnect collectives (edge_axis='edge').
     """
 
     def local_step(params, batch):
@@ -94,7 +95,7 @@ def device_put_batch(batch: dict, mesh: Mesh) -> dict:
 # boundary-row all_to_all per layer instead of full-array psum.
 # ---------------------------------------------------------------------------
 
-_HALO_REPLICATED = ("n_node", "n_edge", "pool_row")
+_HALO_REPLICATED = ("n_node", "n_edge")
 
 
 def stack_halo_buckets(halo_batches: list[dict]) -> dict:

@@ -1,12 +1,14 @@
 """Device mesh helpers.
 
 The reference's only parallel hardware is intra-chip dataflow (SURVEY.md
-§2.4). The TPU analog of scaling its workload is a 2-axis mesh:
+§2.4). The analog of scaling its workload across accelerators is a 2-axis
+mesh:
 
   * ``data``  — whole packed buckets per chip (throughput scaling; the
     moral equivalent of running multiple U50s side by side),
   * ``edge``  — the batched graph's edge set partitioned across chips with
-    node messages combined over ICI (the EDGE_PARALLEL mapping; grows the
+    node messages combined over the device interconnect (the EDGE_PARALLEL
+    mapping; grows the
     maximum batch/graph size past one chip, the way the reference is bounded
     by MAX_NODE/MAX_EDGE — GIN/src/dcl.h:17-18).
 """

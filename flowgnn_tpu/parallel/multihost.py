@@ -1,10 +1,11 @@
 """Multi-host (multi-process) distribution over DCN — SURVEY.md §7.6.
 
 The reference is a single-card host program; its scaling story ends at one
-Alveo U50. The TPU-native scale-out has TWO tiers:
+Alveo U50. The scale-out here has TWO tiers:
 
-  * intra-slice (ICI): the ('data', 'edge') mesh of parallel/mesh.py —
-    shard_map + collectives, built from whatever devices the process sees;
+  * intra-host (device interconnect, e.g. NVLink): the ('data', 'edge')
+    mesh of parallel/mesh.py — shard_map + collectives, built from whatever
+    devices the process sees;
   * inter-host (DCN): multiple processes, each driving its local chips,
     coordinated through ``jax.distributed``. Graph STREAMS are distributed
     at bucket granularity across hosts (molecule inference is embarrassingly
@@ -14,9 +15,9 @@ Alveo U50. The TPU-native scale-out has TWO tiers:
 
 ``initialize()`` wires a process into the cluster (no-op single-process),
 ``global_mesh()`` builds the data×edge mesh over ALL cluster devices with
-hosts laid out along the data axis (edge-axis collectives then ride ICI,
-never DCN — the scaling-book rule), ``shard_stream()`` deals buckets to
-this process, and ``gather_results()`` reassembles per-host outputs.
+hosts laid out along the data axis (edge-axis collectives then ride the
+device interconnect, never DCN — the scaling-book rule), ``shard_stream()``
+deals buckets to this process, and ``gather_results()`` reassembles per-host outputs.
 
 Validated by tests/test_multihost.py: two real OS processes initialize a
 CPU cluster via ``jax.distributed``, run the halo-sharded step over a
@@ -40,7 +41,7 @@ def initialize(
 
     Resolution order: explicit args → FLOWGNN_COORDINATOR /
     FLOWGNN_NUM_PROCESSES / FLOWGNN_PROCESS_ID env vars → cluster
-    auto-detection by ``jax.distributed`` (TPU pod metadata, SLURM, …).
+    auto-detection by ``jax.distributed`` (SLURM, …).
     Returns True when a multi-process runtime was initialized; False for
     the single-process case (everything else then behaves exactly as
     before — the same code path serves one host or many).
@@ -70,8 +71,8 @@ def global_mesh(edge: int = 1, devices=None):
 
     The edge axis is filled from each host's LOCAL devices first (JAX
     device order groups by process), so edge-axis collectives — the
-    per-layer halo all_to_all — stay on ICI; only the embarrassingly
-    parallel data axis spans DCN. ``edge`` must divide the local device
+    per-layer halo all_to_all — stay on the device interconnect; only the
+    embarrassingly parallel data axis spans DCN. ``edge`` must divide the local device
     count for that guarantee; a ValueError names the violation.
     """
     import jax
@@ -99,7 +100,7 @@ def shard_stream(
     identical host programs, disjoint data), then grouped into
     ``local_data``-sized stacks for the host's local ('data', 'edge') mesh.
     DCN carries no per-layer traffic in this scheme — each bucket's
-    collectives ride the local slice's ICI.
+    collectives ride the local device interconnect.
 
     Returns ``(groups, real_counts)``: a trailing partial group is PADDED
     by repeating its last bucket (static mesh shapes need full stacks);

@@ -1,1 +1,1 @@
-from . import loaders  # noqa: F401
+from . import loaders, seeded  # noqa: F401

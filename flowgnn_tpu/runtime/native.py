@@ -1,16 +1,20 @@
 """ctypes bindings for the native host runtime (runtime/packer.cc).
 
-The shared library is built on first use with g++ -O3 and cached next to the
-source; if the toolchain is unavailable the callers fall back to the NumPy
-packer in core/graphs.py (same layout, same results — test_runtime.py checks
-byte equality).
+The shared library is built on first use with g++ -O3 into ``_build/`` next
+to the source, named by a hash of ``packer.cc`` so that a library built from
+other source (or copied in from another machine) is never loaded. If the
+toolchain is unavailable the callers fall back to the NumPy packer in
+core/graphs.py (same layout, same results — test_runtime.py checks byte
+equality).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -21,11 +25,12 @@ from ..core.graphs import Graph, PackedGraphs
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "packer.cc")
-_LIB = os.path.join(_HERE, "libfgpacker.so")
+_BUILD_DIR = os.path.join(_HERE, "_build")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_i32 = ctypes.c_int32
 
 
 def _as_i32p(arr: Optional[np.ndarray]):
@@ -35,33 +40,49 @@ def _as_i32p(arr: Optional[np.ndarray]):
     return arr.ctypes.data_as(_i32p)
 
 
-def load_library(rebuild: bool = False) -> Optional[ctypes.CDLL]:
+def library_path() -> str:
+    """Path of the library built from the current ``packer.cc``."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libfgpacker-{digest}.so")
+
+
+def _build(path: str) -> bool:
+    """Compile packer.cc to ``path`` (atomically: concurrent builders each
+    write a private temp file and rename it into place)."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, path)
+        return True
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_library() -> Optional[ctypes.CDLL]:
     """Build (if needed) and load the native packer; None if unavailable."""
     global _lib
     with _lock:
-        if _lib is not None and not rebuild:
+        if _lib is not None:
             return _lib
-        if rebuild or not os.path.exists(_LIB) or (
-            os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-        ):
-            try:
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC,
-                     "-o", _LIB],
-                    check=True,
-                    capture_output=True,
-                )
-            except (OSError, subprocess.CalledProcessError):
-                return None
-        lib = ctypes.CDLL(_LIB)
-        lib.fg_pack_bucket.restype = ctypes.c_int32
-        lib.fg_pack_bucket_aligned.restype = ctypes.c_int32
-        lib.fg_read_graph.restype = ctypes.c_int32
-        lib.fg_build_local_ell.restype = ctypes.c_int32
-        lib.fg_build_local_ell.argtypes = [
-            _i32p, _i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32, _i32p, _i32p, _i32p, _i32p, _i32p, _i32p,
-        ]
+        path = library_path()
+        if not os.path.exists(path) and not _build(path):
+            return None
+        lib = ctypes.CDLL(path)
+        lib.fg_pack_bucket.restype = _i32
+        lib.fg_pack_bucket.argtypes = (
+            [_i32p] * 5 + [_i32] * 4 + [_i32p] * 7
+        )
+        lib.fg_read_graph.restype = _i32
+        lib.fg_read_graph.argtypes = [ctypes.c_char_p, _i32] + [_i32p] * 4
         _lib = lib
         return _lib
 
@@ -71,13 +92,8 @@ def pack_bucket_native(
     node_capacity: int,
     edge_capacity: int,
     graph_capacity: int,
-    window: int = 0,
 ) -> tuple[PackedGraphs, int]:
-    """Pack as many of ``graphs`` as fit; returns (bucket, graphs_consumed).
-
-    ``window`` > 0 packs window-ALIGNED (fg_pack_bucket_aligned — byte-
-    identical to core/graphs.pack_graphs_aligned for graphs without
-    eigen/VN payloads; test_runtime.py asserts it)."""
+    """Pack as many of ``graphs`` as fit; returns (bucket, graphs_consumed)."""
     lib = load_library()
     if lib is None:
         raise RuntimeError("native packer unavailable")
@@ -101,26 +117,15 @@ def pack_bucket_native(
     out_n_node = np.empty(graph_capacity + 1, np.int32)
     out_n_edge = np.empty(graph_capacity + 1, np.int32)
 
-    if window > 0:
-        consumed = lib.fg_pack_bucket_aligned(
-            _as_i32p(node_feat), _as_i32p(edge_index), _as_i32p(edge_attr),
-            _as_i32p(n_nodes), _as_i32p(n_edges), len(graphs),
-            node_capacity, edge_capacity, graph_capacity, window,
-            _as_i32p(out_node_feat), _as_i32p(out_node_graph),
-            _as_i32p(out_senders), _as_i32p(out_receivers),
-            _as_i32p(out_edge_attr), _as_i32p(out_n_node),
-            _as_i32p(out_n_edge),
-        )
-    else:
-        consumed = lib.fg_pack_bucket(
-            _as_i32p(node_feat), _as_i32p(edge_index), _as_i32p(edge_attr),
-            _as_i32p(n_nodes), _as_i32p(n_edges), len(graphs),
-            node_capacity, edge_capacity, graph_capacity,
-            _as_i32p(out_node_feat), _as_i32p(out_node_graph),
-            _as_i32p(out_senders), _as_i32p(out_receivers),
-            _as_i32p(out_edge_attr), _as_i32p(out_n_node),
-            _as_i32p(out_n_edge),
-        )
+    consumed = lib.fg_pack_bucket(
+        _as_i32p(node_feat), _as_i32p(edge_index), _as_i32p(edge_attr),
+        _as_i32p(n_nodes), _as_i32p(n_edges), len(graphs),
+        node_capacity, edge_capacity, graph_capacity,
+        _as_i32p(out_node_feat), _as_i32p(out_node_graph),
+        _as_i32p(out_senders), _as_i32p(out_receivers),
+        _as_i32p(out_edge_attr), _as_i32p(out_n_node),
+        _as_i32p(out_n_edge),
+    )
     if consumed < 0:
         raise ValueError("first graph exceeds bucket capacity")
     packed = PackedGraphs(
@@ -151,50 +156,6 @@ def read_graph_native(dataset_dir: str, index: int, with_attr: bool = True) -> G
     if rc != 0:
         raise IOError(f"graph {index} read failed: rc={rc}")
     return Graph(node_feat, edge_index, edge_attr)
-
-
-def build_local_ell_native(
-    senders: np.ndarray,
-    receivers: np.ndarray,
-    num_nodes: int,
-    window: int,
-    block: int,
-    k_blocks: Optional[int] = None,
-):
-    """Native graph-local ELL layout (fg_build_local_ell) — identical output
-    to core/blocking.build_local_blocks_ell's NumPy path (test_runtime.py).
-
-    Returns (u_local, v_local, edge_perm, valid, spill_idx, k_blocks) or
-    None when the native library is unavailable.
-    """
-    lib = load_library()
-    if lib is None:
-        return None
-    s = np.ascontiguousarray(senders, np.int32)
-    r = np.ascontiguousarray(receivers, np.int32)
-    e = s.shape[0]
-    k_io = ctypes.c_int32(-1 if k_blocks is None else k_blocks)
-    if k_blocks is None:  # probe: auto-size k from the window counts
-        lib.fg_build_local_ell(
-            _as_i32p(s), _as_i32p(r), e, num_nodes, window, block,
-            ctypes.byref(k_io), None, None, None, None, None,
-        )
-    num_windows = -(-num_nodes // window)
-    p = num_windows * k_io.value * block
-    u_local = np.empty(p, np.int32)
-    v_local = np.empty(p, np.int32)
-    edge_perm = np.empty(p, np.int32)
-    valid = np.empty(p, np.int32)
-    spill = np.empty(max(e, 1), np.int32)
-    n_spill = lib.fg_build_local_ell(
-        _as_i32p(s), _as_i32p(r), e, num_nodes, window, block,
-        ctypes.byref(k_io), _as_i32p(u_local), _as_i32p(v_local),
-        _as_i32p(edge_perm), _as_i32p(valid), _as_i32p(spill),
-    )
-    return (
-        u_local, v_local, edge_perm, valid.astype(bool),
-        spill[:n_spill].copy(), int(k_io.value),
-    )
 
 
 def pack_dataset_native(

@@ -1,11 +1,12 @@
-"""Metrics, roofline accounting, profiling CSV, and scaling-bench tests."""
+"""Metrics, roofline accounting, profiling CSV, device/cache helpers, the
+timing protocol, bench.py on the CPU, and scaling-bench tests."""
 
 import numpy as np
 import pytest
 
 from flowgnn_tpu.bench.metrics import average_precision, roc_auc
 from flowgnn_tpu.bench.profiling import KernelStats, trace
-from flowgnn_tpu.bench.roofline import V5E, model_cost, report, spmm_cost
+from flowgnn_tpu.bench.roofline import PEAKS, model_cost, peaks, report
 
 
 def test_roc_auc_known_values():
@@ -41,17 +42,30 @@ def test_average_precision():
 
 
 def test_roofline_accounting():
+    h100 = peaks("NVIDIA H100 80GB HBM3")
     c = model_cost("gin", 8192, 16384)
     assert c.flops > 0 and c.bytes > 0
     # matmuls dominate: 5 layers × 2 × 2·N·100·200
     assert c.flops > 5 * 2 * 2 * 8192 * 100 * 200
-    r = report("gin", 8192, 16384, measured_s=100e-6)
+    r = report("gin", 8192, 16384, measured_s=100e-6, chip=h100)
     assert 0 < r["roofline_frac"] < 1.5
     assert r["light_speed_us"] == pytest.approx(
-        c.light_speed_s(V5E, True) * 1e6
+        c.light_speed_s(h100, True) * 1e6
     )
-    s = spmm_cost(32768, 128, 100)
-    assert s.flops == 2 * 32768 * 128 * 100
+    # f32 runs are held to the f32 (non-tensor-core) peak and 4-byte data.
+    r32 = report("gin", 8192, 16384, measured_s=100e-6, chip=h100, bf16=False)
+    assert r32["light_speed_us"] > r["light_speed_us"]
+
+
+def test_peaks_table_h100_row_and_unknown_kind():
+    h100 = peaks("NVIDIA H100 80GB HBM3")
+    assert h100.peak_bf16_flops == 989e12
+    assert h100.peak_f32_flops == 67e12
+    assert h100.hbm_bytes_per_s == 3.35e12
+    assert "data sheet" in h100.source
+    assert all(spec.source for spec in PEAKS.values())
+    with pytest.raises(KeyError, match="no peaks"):
+        peaks("cpu")
 
 
 def test_kernel_stats_csv():
@@ -82,7 +96,7 @@ def test_scaling_bench_cpu():
 def test_scaling_bench_edge_axis_cpu():
     """The edge axis must actually be swept (VERDICT Weak #4) — halo and
     psum strategies both run, and the halo strategy reports moving fewer
-    ICI bytes per layer."""
+    interconnect bytes per layer."""
     from flowgnn_tpu.bench.scaling import run_scaling
 
     halo = run_scaling("gin", graphs_per_device=16, device_counts=(1, 2),
@@ -92,197 +106,133 @@ def test_scaling_bench_edge_axis_cpu():
                        trials=1, caps=(1024, 4096, 64), axis="edge",
                        strategy="psum")
     assert [r["devices"] for r in halo] == [1, 2]
-    assert halo[1]["ici_bytes_per_layer"] < psum[0]["ici_bytes_per_layer"]
+    assert (
+        halo[1]["interconnect_bytes_per_layer"]
+        < psum[0]["interconnect_bytes_per_layer"]
+    )
     assert all(r["edges_per_s"] > 0 for r in halo + psum)
 
 
-def test_tune_block_candidates():
-    """The tuner's derived block sizes must hold the densest window in one
-    block (k = 1) and stay 128-aligned."""
-    from flowgnn_tpu.bench.tune import _window_densities, block_candidates
-    from flowgnn_tpu.core.graphs import pack_dataset
+def _tiny_gin_stream(n_buckets=2):
+    from flowgnn_tpu.core.graphs import pack_graphs
     from flowgnn_tpu.core.synthetic import synthetic_molhiv
+    from flowgnn_tpu.models.base import as_batch
 
-    graphs = synthetic_molhiv(64, seed=1)
-    bucket = next(iter(pack_dataset(
-        graphs, node_capacity=4096, edge_capacity=16384,
-        graph_capacity=256, align_window=128,
-    )))
-    dens = _window_densities(bucket, 128)
-    cands = block_candidates(bucket, 128)
-    assert all(b % 128 == 0 for b in cands)
-    assert all(b >= dens.max() for b in cands)
-    assert cands[0] <= dens.max() + 127  # minimal, not padded beyond a tile
-    assert cands[1] == cands[0] + 128
+    graphs = synthetic_molhiv(4 * n_buckets, seed=2)
+    return [
+        as_batch(pack_graphs(graphs[4 * i : 4 * i + 4], 256, 1024, 8))
+        for i in range(n_buckets)
+    ]
 
 
 def test_protocol_time_stream_cpu():
-    """The shared timing protocol must run a real forward (values flow
-    through the carry chain) and return positive times."""
-    from flowgnn_tpu.bench.protocol import dispatch_floor, time_stream
+    """The shared timing protocol must run a real forward over
+    device-resident arguments and return positive times."""
+    from conftest import seeded_params
+    from flowgnn_tpu.bench.protocol import time_stream
     from flowgnn_tpu.core.numerics import FLOAT32
-    from flowgnn_tpu.core.synthetic import synthetic_molhiv
-    from flowgnn_tpu.core.graphs import pack_graphs
     from flowgnn_tpu.models import registry
-    from flowgnn_tpu.models.base import as_batch, prepare_params
-    import os
+    from flowgnn_tpu.models.base import prepare_params
 
     spec = registry.get("gin")
-    model_dir = os.path.join("/root/reference", spec.reference_dir)
-    if not os.path.isdir(model_dir):
-        pytest.skip("reference weights not mounted")
-    params = prepare_params(spec.loader(model_dir), FLOAT32)
-    packed = pack_graphs(synthetic_molhiv(8, seed=2), 512, 2048, 16)
-    batches = [as_batch(packed)]
-    best, avg = time_stream(spec, params, batches, FLOAT32, reps=2, trials=2)
+    params = prepare_params(seeded_params("gin"), FLOAT32)
+    best, avg = time_stream(spec, params, _tiny_gin_stream(1), FLOAT32,
+                            reps=2, trials=2)
     assert 0 < best <= avg
-    assert dispatch_floor(FLOAT32) > 0
 
 
-def test_slot_stage_heterogeneous_buckets(monkeypatch):
-    """Regression: a stream whose buckets auto-size DIFFERENT slot counts
-    must not feed one bucket's geometry to another (TPU INTERNAL error on
-    the 4-bucket molpcba GAT stream before the fix)."""
-    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
-    from flowgnn_tpu.bench.spmm_stage import measure_slot_stage
-    from flowgnn_tpu.core.graphs import Graph, pack_graphs_aligned
-    from flowgnn_tpu.core.numerics import FLOAT32
-    from flowgnn_tpu.models.base import as_batch
-
-    def star(deg):  # max in-degree = deg at node 0
-        ei = np.array(
-            [(i, 0) for i in range(1, deg + 1)]
-            + [(0, i) for i in range(1, deg + 1)], np.int32
-        )
-        return Graph(np.zeros((deg + 1, 9), np.int32), ei,
-                     np.zeros((ei.shape[0], 3), np.int32))
-
-    caps = dict(node_capacity=255, edge_capacity=1024, graph_capacity=8)
-    batches = [
-        as_batch(pack_graphs_aligned([star(d)], window=128, **caps),
-                 blocked="local_slots", window=128)
-        for d in (3, 6)
-    ]
-    s_values = {b["slot_geom"].shape[-1] for b in batches}
-    assert len(s_values) == 2  # genuinely heterogeneous slot axes
-    out = measure_slot_stage(batches, FLOAT32, reps=1, trials=1, layers=1,
-                             dim=8)
-    assert out["time_us"] > 0
-
-
-def test_matmul_shapes_measure_cpu(monkeypatch):
-    """The shape-achievable microbench (BASELINE.md re-derivation tool)
-    must stay runnable; interpret mode on CPU, tiny shape."""
-    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
-    from flowgnn_tpu.bench.matmul_shapes import measure
-
-    t = measure(8, 128, 128, 1, 2, "bf16", reps=1, trials=1)
-    assert t > 0
-
-def test_as_batches_uniform_and_scan_stack():
-    """Round-4 protocol: heterogeneous slot buckets of one stream must
-    reconcile to ONE program signature, and the scan-stacked time_stream
-    path must run the same forward as the unrolled path (values flow; the
-    per-graph outputs come from the same program either way)."""
-    import flowgnn_tpu.bench.protocol as proto
-    from flowgnn_tpu.core.graphs import Graph, pack_graphs_aligned
-    from flowgnn_tpu.core.numerics import FLOAT32
-    from flowgnn_tpu.models import registry
-    from flowgnn_tpu.models.base import (
-        as_batches_uniform, batch_signature, prepare_params,
-    )
-    import os
-
-    def star(deg):
-        ei = np.array(
-            [(i, 0) for i in range(1, deg + 1)]
-            + [(0, i) for i in range(1, deg + 1)], np.int32
-        )
-        return Graph(np.zeros((deg + 1, 9), np.int32), ei,
-                     np.zeros((ei.shape[0], 3), np.int32))
-
-    caps = dict(node_capacity=255, edge_capacity=1024, graph_capacity=8)
-    buckets = [
-        pack_graphs_aligned([star(d)], window=128, **caps) for d in (3, 6)
-    ]
-    uni = as_batches_uniform(buckets, blocked="local_slots", window=128)
-    assert len({batch_signature(b) for b in uni}) == 1
-    # pinned slot axis covers both buckets' in-degrees
-    assert all(b["slot_geom"].shape[-1] == 6 for b in uni)
-
-    spec = registry.get("pna")
-    model_dir = os.path.join("/root/reference", spec.reference_dir)
-    if not os.path.isdir(model_dir):
-        pytest.skip("reference weights not mounted")
-    params = prepare_params(spec.loader(model_dir), FLOAT32)
-    # Plain-layout batches for the scan leg: interpret-mode pallas inside
-    # lax.scan trips a JAX CPU lowering-cache KeyError (closed_call); the
-    # real TPU path runs compiled pallas, which scans fine (bench-verified).
-    from flowgnn_tpu.models.base import as_batch
-
-    plain = [as_batch(b) for b in buckets]
-    old = proto.STACK_THRESHOLD
-    try:
-        proto.STACK_THRESHOLD = 1  # force the scan-stacked path
-        best, avg = proto.time_stream(spec, params, plain, FLOAT32,
-                                      reps=1, trials=1)
-        assert 0 < best <= avg * (1 + 1e-9)
-    finally:
-        proto.STACK_THRESHOLD = old
-
-
-def test_scan_stack_local_ell_and_spill_fallback(monkeypatch):
-    """ADVICE r4: the scan-stacked long-stream leg over BLOCKED layouts.
-
-    (a) A no-spill window-aligned local_ell stream (the molpcba
-    full-dataset protocol's layout) scan-stacks and runs; (b) a
-    spill-carrying stream must take the unrolled fallback — its static
-    spill metadata (spill_blk_window.max()) is a concrete-value read that
-    a scan would turn into a tracer crash, and T is per-bucket so
-    stacking would be wrong anyway."""
-    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
-    import os
+@pytest.mark.parametrize("threshold", [1, 6])
+def test_stream_pass_scan_stack_matches_single(threshold, monkeypatch):
+    """Same-signature buckets beyond STACK_THRESHOLD run under one lax.map;
+    the stacked pass must compute exactly what the unrolled pass does, and
+    take parameters and the stream as arguments (not as constants)."""
+    import jax
 
     import flowgnn_tpu.bench.protocol as proto
-    from flowgnn_tpu.core.graphs import pack_graphs_aligned
+    from conftest import seeded_params
     from flowgnn_tpu.core.numerics import FLOAT32
-    from flowgnn_tpu.core.synthetic import synthetic_molhiv
     from flowgnn_tpu.models import registry
-    from flowgnn_tpu.models.base import as_batches_uniform, prepare_params
+    from flowgnn_tpu.models.base import prepare_params
 
+    monkeypatch.setattr(proto, "STACK_THRESHOLD", threshold)
     spec = registry.get("gin")
-    model_dir = os.path.join("/root/reference", spec.reference_dir)
-    if not os.path.isdir(model_dir):
-        pytest.skip("reference weights not mounted")
-    params = prepare_params(spec.loader(model_dir), FLOAT32)
-    graphs = synthetic_molhiv(16, seed=3)
-    caps = dict(node_capacity=511, edge_capacity=2048, graph_capacity=8)
+    params = prepare_params(seeded_params("gin"), FLOAT32)
+    batches = _tiny_gin_stream(3)
+    pass_fn, stream = proto.stream_pass(spec, FLOAT32, batches)
+    outs = pass_fn(params, stream)
+    got = np.concatenate([np.asarray(o).reshape(-1, 9, 1) for o in outs])
+    want = np.stack([np.asarray(spec.forward(params, b, FLOAT32))
+                     for b in batches])
+    # Rows 0..3 are the real graphs; the pad graph's row is garbage.
+    np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=1e-6, atol=1e-6)
+    assert len(outs) == (1 if threshold == 1 else 3)
+    jaxpr = jax.make_jaxpr(pass_fn)(params, stream)
+    assert not any(
+        np.size(c) > 1000 for c in jaxpr.consts
+    ), "parameters or batches were closed over as constants"
 
-    # (a) no-spill aligned stream → scan path engages and runs.
-    buckets = [
-        pack_graphs_aligned(graphs[i : i + 8], window=128, **caps)
-        for i in (0, 8)
-    ]
-    batches = as_batches_uniform(buckets, blocked="local_ell", window=128,
-                                 block=384)
-    assert all("spill_blk_window" not in b for b in batches)
-    old = proto.STACK_THRESHOLD
-    try:
-        proto.STACK_THRESHOLD = 1
-        best, _ = proto.time_stream(spec, params, batches, FLOAT32,
-                                    reps=1, trials=1)
-        assert best > 0
-        # (b) spilling stream (window 64 < some graph sizes): the guard
-        # must route it through the unrolled path without crashing.
-        sp_buckets = [
-            pack_graphs_aligned(graphs[i : i + 8], window=64, **caps)
-            for i in (0, 8)
-        ]
-        sp = as_batches_uniform(sp_buckets, blocked="local_ell", window=64,
-                                block=192)
-        assert any("spill_blk_window" in b for b in sp)
-        best, _ = proto.time_stream(spec, params, sp, FLOAT32,
-                                    reps=1, trials=1)
-        assert best > 0
-    finally:
-        proto.STACK_THRESHOLD = old
+
+def test_device_info_and_require_gpu_on_cpu():
+    from flowgnn_tpu.bench.device import card_info, device_info, require_gpu
+
+    info = device_info()
+    assert info == {"platform": "cpu", "kind": info["kind"], "count": 8}
+    with pytest.raises(SystemExit, match="no GPU"):
+        require_gpu()
+    assert require_gpu(cpu_rehearsal=True)["platform"] == "cpu"
+    assert set(card_info()) == {"name", "power_limit"}
+
+
+def test_nvidia_smi_line_parsing(monkeypatch):
+    """card_info splits nvidia-smi's csv line into name and power limit."""
+    from flowgnn_tpu.bench import device
+
+    monkeypatch.setattr(
+        device, "nvidia_smi_line",
+        lambda: "NVIDIA H100 80GB HBM3, 700.00 W\nNVIDIA H100 80GB HBM3, 700.00 W",
+    )
+    assert device.card_info() == {
+        "name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W",
+    }
+    monkeypatch.setattr(device, "nvidia_smi_line", lambda: None)
+    assert device.card_info() == {"name": None, "power_limit": None}
+
+
+def test_compile_cache_dir_env_and_fixed_default(monkeypatch):
+    import os
+
+    from flowgnn_tpu.runtime import compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/somewhere/cache")
+    assert compile_cache.cache_dir() == "/somewhere/cache"
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    default = compile_cache.cache_dir()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert default == os.path.join(repo, ".jax_cache")
+    assert compile_cache.cache_dir() == default  # no pid, no time
+    assert ".jax_cache" in open(os.path.join(repo, ".gitignore")).read()
+
+
+def test_bench_main_fails_without_gpu():
+    import bench
+
+    with pytest.raises(SystemExit, match="no GPU"):
+        bench.main(["--model", "gin", "--graphs", "8"])
+
+
+def test_bench_main_cpu_rehearsal(capsys):
+    """bench.py end to end at a tiny size on the CPU: one JSON line per
+    model naming the device it ran on."""
+    import json
+
+    import bench
+
+    results = bench.main([
+        "--model", "gcn", "--graphs", "16", "--reps", "1", "--trials", "1",
+        "--node-cap", "512", "--graph-cap", "16", "--cpu-rehearsal",
+    ])
+    assert results["gcn"]["us_per_graph"] > 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "gcn_molhiv_synth_us_per_graph"
+    assert line["device"]["platform"] == "cpu"
+    assert set(line["card"]) == {"name", "power_limit"}

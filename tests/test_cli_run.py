@@ -6,12 +6,10 @@ summary CSV, and that the written predictions equal the direct jitted
 forward on the same graphs.
 """
 
-import os
-
 import numpy as np
 import pytest
 
-from conftest import assert_allclose
+from conftest import assert_allclose, seeded_params
 from flowgnn_tpu.cli import run_case
 from flowgnn_tpu.core.graphs import pack_graphs
 from flowgnn_tpu.core.numerics import FLOAT32
@@ -20,15 +18,15 @@ from flowgnn_tpu.models import registry
 from flowgnn_tpu.models.base import as_batch, prepare_params
 
 
-def test_run_case_artifacts_and_predictions(tmp_path, reference_root):
+def test_run_case_artifacts_and_predictions(tmp_path):
     import jax
 
     r = run_case(
         "gin", "synth", trials=2, out_dir=str(tmp_path), prec=FLOAT32,
-        reference_root=reference_root, num_graphs=6, caps=(512, 2048, 8),
-        layout="plain",
+        num_graphs=6, caps=(512, 2048, 8),
     )
     assert r["model"] == "gin" and r["num_graphs"] == 6
+    assert r["device"]["platform"] == jax.devices()[0].platform
     assert r["avg_ms"] > 0 and r["graphs_per_s"] > 0
 
     lines = (tmp_path / "gin_output.txt").read_text().strip().splitlines()
@@ -42,8 +40,7 @@ def test_run_case_artifacts_and_predictions(tmp_path, reference_root):
 
     # Written predictions == direct jitted forward on the same stream.
     spec = registry.get("gin")
-    params = spec.loader(os.path.join(reference_root, "GIN"))
-    jp = prepare_params(params, FLOAT32)
+    jp = prepare_params(seeded_params("gin"), FLOAT32)
     graphs = synthetic_molhiv(6, seed=0)
     packed = pack_graphs(
         graphs, node_capacity=512, edge_capacity=2048, graph_capacity=8

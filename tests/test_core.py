@@ -159,7 +159,7 @@ def test_ogb_converter_roundtrip(tmp_path):
     np.testing.assert_array_equal(lab.ravel(), labels)
 
 
-def test_accuracy_cli_on_converted_dataset(tmp_path, reference_root):
+def test_accuracy_cli_on_converted_dataset(tmp_path):
     """One-command accuracy path: labelled dataset -> ROC-AUC number."""
     import json
 
@@ -175,7 +175,7 @@ def test_accuracy_cli_on_converted_dataset(tmp_path, reference_root):
     rng = np.random.default_rng(1)
     np.savetxt(tmp_path / "labels.csv", rng.integers(0, 2, (8, 1)),
                delimiter=",")
-    r = run_accuracy("gin", str(tmp_path), FLOAT32, reference_root)
+    r = run_accuracy("gin", str(tmp_path), FLOAT32)
     assert r["metric"] == "rocauc"
     assert 0.0 <= r["value"] <= 1.0 or np.isnan(r["value"])
     assert r["num_graphs"] == 8

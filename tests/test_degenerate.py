@@ -2,21 +2,18 @@
 
 The reference accepts any graph stream from graph_bin — a bond-less molecule
 is legal input (the host loop simply reads 0 edges, GIN/src/host.cc:126-143,
-and the kernel's CSR pass leaves every degree 0). Every layout builder here
-(ELL lanes, dest-major slots, spill tails) and all six model forwards must
-survive zero-edge / single-node graphs packed into a normal bucket, and agree
-with the f64 oracles on them — this exercises the zero-degree guards (PNA's
-log(deg+1)=0 rows, DGN's 2^-13 eig_abssum guard, GAT's self-loop-only
-softmax).
+and the kernel's CSR pass leaves every degree 0). All six model forwards and
+the halo layout must survive zero-edge / single-node graphs packed into a
+normal bucket, and agree with the f64 oracles on them — this exercises the
+zero-degree guards (PNA's log(deg+1)=0 rows, DGN's 2^-13 eig_abssum guard,
+GAT's self-loop-only softmax).
 """
-
-import os
 
 import numpy as np
 import pytest
 
-from conftest import assert_allclose
-from flowgnn_tpu.core.graphs import Graph, pack_graphs_aligned
+from conftest import assert_allclose, seeded_params
+from flowgnn_tpu.core.graphs import Graph, pack_graphs
 from flowgnn_tpu.core.numerics import FLOAT32, FLOAT64
 from flowgnn_tpu.core.synthetic import synthetic_molhiv
 from flowgnn_tpu.models import registry
@@ -45,28 +42,26 @@ def degenerate():
 
 
 @pytest.mark.parametrize("name", ALL_MODELS)
-def test_degenerate_matches_oracle_f64(name, degenerate, reference_root):
+def test_degenerate_matches_oracle_f64(name, degenerate):
     """Zero-edge graphs: packed JAX model == per-graph NumPy oracle."""
-    out, params = run_jax(name, degenerate, reference_root, FLOAT64)
+    out, params = run_jax(name, degenerate, FLOAT64)
     expected = run_oracle(name, degenerate, params)
     tol = 1e-6 if name == "dgn" else 1e-9
     assert_allclose(out, expected, rtol=tol, atol=tol, msg=name)
 
 
-def test_degenerate_halo_forward(degenerate, reference_root):
+def test_degenerate_halo_forward(degenerate):
     """Halo edge sharding with chips that own ZERO real edges (bond-less
     stream): empty boundary sets and all-zero exchanges must be no-ops."""
     import jax
 
-    from flowgnn_tpu.core.graphs import pack_graphs
     from flowgnn_tpu.parallel.halo import build_halo_batch
     from flowgnn_tpu.parallel.inference import halo_forward, stack_halo_buckets
     from flowgnn_tpu.parallel.mesh import make_mesh
 
     edgeless = degenerate[:2]  # 1-node and 3-node graphs, zero edges total
     spec = registry.get("gin")
-    params = spec.loader(os.path.join(reference_root, "GIN"))
-    jp = prepare_params(params, FLOAT32)
+    jp = prepare_params(seeded_params("gin"), FLOAT32)
     packed = pack_graphs(edgeless, **CAPS)
     k = 4
     if len(jax.devices()) < k:
@@ -80,29 +75,3 @@ def test_degenerate_halo_forward(degenerate, reference_root):
         jax.jit(lambda p, b: spec.forward(p, b, FLOAT32))(jp, as_batch(packed))
     )
     assert_allclose(got[:2], expected[:2], rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("name", ALL_MODELS)
-def test_degenerate_local_layout_equals_plain(
-    name, degenerate, reference_root, monkeypatch
-):
-    """Production graph-local kernel path survives zero-edge graphs."""
-    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
-    import jax
-
-    spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
-    jp = prepare_params(params, FLOAT32)
-    tg = registry.apply_transforms(spec, degenerate)
-    packed = pack_graphs_aligned(
-        tg, window=128, with_eigen=spec.needs_eigen, **CAPS
-    )
-    blocked = "local_slots" if name in ("pna", "gat", "dgn") else "local_ell"
-    plain = spec.forward(jp, as_batch(packed), FLOAT32)
-    local = spec.forward(jp, as_batch(packed, blocked=blocked), FLOAT32)
-    n = len(degenerate)
-    assert np.all(np.isfinite(np.asarray(local)[:n])), name
-    assert_allclose(
-        np.asarray(local)[:n], np.asarray(plain)[:n], rtol=1e-5, atol=1e-5,
-        msg=name,
-    )

@@ -6,12 +6,11 @@ activations re-quantized at stage boundaries — without replaying the FPGA's
 accumulation order.
 """
 
-import os
-
 import jax
 import numpy as np
 import pytest
 
+from conftest import seeded_params
 from flowgnn_tpu.core.graphs import pack_graphs
 from flowgnn_tpu.core.numerics import (
     AP_FIXED_16_3,
@@ -25,9 +24,9 @@ from flowgnn_tpu.models.base import as_batch, prepare_params
 CAPS = dict(node_capacity=512, edge_capacity=2048, graph_capacity=16)
 
 
-def _run(name, graphs, reference_root, prec):
+def _run(name, graphs, prec):
     spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
+    params = seeded_params(name)
     tg = registry.apply_transforms(spec, graphs)
     packed = pack_graphs(tg, with_eigen=spec.needs_eigen, **CAPS)
     fwd = jax.jit(lambda p, b: spec.forward(p, b, prec))
@@ -36,12 +35,12 @@ def _run(name, graphs, reference_root, prec):
 
 
 @pytest.mark.parametrize("name", ["gin", "gcn", "gat", "pna", "dgn"])
-def test_fixed_mode_tracks_float(name, graphs16, reference_root):
+def test_fixed_mode_tracks_float(name, graphs16):
     """Fixed mode stays within the quantization-error envelope of float."""
     spec = registry.get(name)
     prec_fixed = Precision(fixed=spec.fixed_spec)
-    a = _run(name, graphs16[:8], reference_root, FLOAT32)
-    b = _run(name, graphs16[:8], reference_root, prec_fixed)
+    a = _run(name, graphs16[:8], FLOAT32)
+    b = _run(name, graphs16[:8], prec_fixed)
     assert np.all(np.isfinite(b))
     # Loose envelope: per-layer quantization at 2^-10 (2^-13 for DGN)
     # accumulates through 4-5 layers; outputs are O(1)-O(100). DGN's
@@ -54,7 +53,7 @@ def test_fixed_mode_tracks_float(name, graphs16, reference_root):
     assert rel.max() < limit, (name, rel.max(), a, b)
 
 
-def test_gin_vn_fixed_mode_saturates_on_grid(graphs16, reference_root):
+def test_gin_vn_fixed_mode_saturates_on_grid(graphs16):
     """GIN-VN's fixed-mode rung: the float envelope claim does not apply.
 
     The virtual-node star (GIN-VN/src/host_load.cc:129-153) sums messages
@@ -70,8 +69,8 @@ def test_gin_vn_fixed_mode_saturates_on_grid(graphs16, reference_root):
     """
     spec = registry.get("gin-vn")
     fx = spec.fixed_spec
-    a = _run("gin-vn", graphs16[:8], reference_root, Precision(fixed=fx))
-    b = _run("gin-vn", graphs16[:8], reference_root, Precision(fixed=fx))
+    a = _run("gin-vn", graphs16[:8], Precision(fixed=fx))
+    b = _run("gin-vn", graphs16[:8], Precision(fixed=fx))
     np.testing.assert_array_equal(a, b)
     assert np.all(np.isfinite(a))
     scaled = a.astype(np.float64) * fx.scale
@@ -80,15 +79,15 @@ def test_gin_vn_fixed_mode_saturates_on_grid(graphs16, reference_root):
 
 
 @pytest.mark.parametrize("name,spec_fx", [("gin", AP_FIXED_16_6), ("dgn", AP_FIXED_16_3)])
-def test_fixed_outputs_on_grid(name, spec_fx, graphs16, reference_root):
+def test_fixed_outputs_on_grid(name, spec_fx, graphs16):
     """Every fixed-mode output lies exactly on the ap_fixed value grid."""
-    out = _run(name, graphs16[:8], reference_root, Precision(fixed=spec_fx))
+    out = _run(name, graphs16[:8], Precision(fixed=spec_fx))
     scaled = out.astype(np.float64) * spec_fx.scale
     np.testing.assert_array_equal(scaled, np.round(scaled))
     assert np.abs(out).max() <= spec_fx.max_val + 1e-9
 
 
-def test_fixed_mode_deterministic(graphs16, reference_root):
-    a = _run("gin", graphs16[:4], reference_root, Precision(fixed=AP_FIXED_16_6))
-    b = _run("gin", graphs16[:4], reference_root, Precision(fixed=AP_FIXED_16_6))
+def test_fixed_mode_deterministic(graphs16):
+    a = _run("gin", graphs16[:4], Precision(fixed=AP_FIXED_16_6))
+    b = _run("gin", graphs16[:4], Precision(fixed=AP_FIXED_16_6))
     np.testing.assert_array_equal(a, b)

@@ -6,13 +6,11 @@ plus the layout invariants and the communication-volume accounting that
 motivates the design.
 """
 
-import os
-
 import jax
 import numpy as np
 import pytest
 
-from conftest import assert_allclose
+from conftest import assert_allclose, seeded_params
 from flowgnn_tpu.core.graphs import Graph, pack_graphs
 from flowgnn_tpu.core.numerics import FLOAT32
 from flowgnn_tpu.models import registry
@@ -76,12 +74,11 @@ def test_halo_layout_invariants(graphs16):
 
 @pytest.mark.parametrize("name", ALL_MODELS)
 @pytest.mark.parametrize("data,edge", [(2, 4), (1, 8)])
-def test_halo_equals_single(name, data, edge, graphs16, reference_root):
+def test_halo_equals_single(name, data, edge, graphs16):
     if len(jax.devices()) < data * edge:
         pytest.skip("needs 8 fake devices")
     spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
-    jparams = prepare_params(params, FLOAT32)
+    jparams = prepare_params(seeded_params(name), FLOAT32)
     tg = registry.apply_transforms(spec, graphs16)
 
     per = max(1, len(tg) // max(data, 1))
@@ -106,7 +103,7 @@ def test_halo_equals_single(name, data, edge, graphs16, reference_root):
                         msg=f"{name} bucket {i} mesh {data}x{edge} halo")
 
 
-def test_halo_handles_straddling_graph(reference_root):
+def test_halo_handles_straddling_graph():
     """A graph bigger than one chip's shard: its crossing edges must ride the
     halo exchange (ring of 200 nodes over 4 chips of 64-row shards... the
     shard size comes out of halo_shape)."""
@@ -119,8 +116,7 @@ def test_halo_handles_straddling_graph(reference_root):
     g = Graph(rng.integers(0, 2, (n, 9)).astype(np.int32), ei,
               np.zeros((ei.shape[0], 3), np.int32))
     spec = registry.get("gin")
-    params = spec.loader(os.path.join(reference_root, "GIN"))
-    jparams = prepare_params(params, FLOAT32)
+    jparams = prepare_params(seeded_params("gin"), FLOAT32)
     caps = dict(node_capacity=256, edge_capacity=1024, graph_capacity=4)
     packed = pack_graphs([g], **caps)
     k = 4
@@ -141,236 +137,3 @@ def test_halo_moves_fewer_bytes():
     halo = halo_bytes_per_layer(shape, dim=100)
     psum = psum_bytes_per_layer(node_capacity=32768, dim=100)
     assert halo < psum / 10  # 8·256·100·4 ≈ 0.8 MB vs 32k·100·4 ≈ 13 MB
-
-
-@pytest.fixture(autouse=False)
-def _interp(monkeypatch):
-    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
-
-
-@pytest.mark.parametrize("name", ["gin", "gcn", "dgn", "gat", "pna"])
-def test_halo_local_kernels_equal_single(name, _interp, graphs16, reference_root):
-    """VERDICT #3: the Pallas graph-local kernels must run INSIDE shard_map
-    (per-shard ELL / slot layouts from parallel/halo.py) instead of the
-    sharded path regressing to plain XLA scatter."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 fake devices")
-    spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
-    jparams = prepare_params(params, FLOAT32)
-    tg = registry.apply_transforms(spec, graphs16[:8])
-    caps = dict(node_capacity=1024, edge_capacity=4096, graph_capacity=8)
-    packed = pack_graphs(tg, with_eigen=spec.needs_eigen, **caps)
-    blocked = "local_slots" if name == "pna" else "local_ell"
-    hb = build_halo_batch(packed, k=4, edge_slack=8.0, blocked=blocked)
-    key = "slot_src" if name == "pna" else "loc_ulocal"
-    assert key in hb  # the local layout must actually be attached
-    stacked = stack_halo_buckets([hb])
-    mesh = make_mesh(data=1, edge=4)
-    fwd = halo_forward(spec.forward, mesh, FLOAT32)
-    got = np.asarray(fwd(jparams, stacked))[0]
-    expected = np.asarray(
-        jax.jit(lambda p, b: spec.forward(p, b, FLOAT32))(jparams, as_batch(packed))
-    )
-    kk = packed.num_graphs
-    assert_allclose(got[:kk], expected[:kk], rtol=1e-5, atol=1e-5,
-                    msg=f"{name} halo+local")
-
-
-@pytest.mark.parametrize("name", ALL_MODELS)
-def test_halo_megakernel_engaged(name, _interp, graphs16, reference_root):
-    """VERDICT r2 #2: with window-aligned packing (no spill ⇒ no cross-chip
-    edges) the sharded path must run the WHOLE-MODEL megakernel per shard —
-    the jaxpr carries exactly ONE pallas_call — with the in-kernel finalize
-    completed by one tiled all_gather of the pool partials, and match the
-    single-chip megakernel output."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 fake devices")
-    from flowgnn_tpu.core.graphs import pack_graphs_aligned
-    from flowgnn_tpu.models.base import PALLAS_ELL_WINDOW
-
-    spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
-    jparams = prepare_params(params, FLOAT32)
-    tg = registry.apply_transforms(spec, graphs16[:8])
-    caps = dict(node_capacity=1023, edge_capacity=4096, graph_capacity=16)
-    packed = pack_graphs_aligned(
-        tg, window=PALLAS_ELL_WINDOW, with_eigen=spec.needs_eigen, **caps
-    )
-    blocked = (
-        "local_slots" if name in ("pna", "gat", "dgn") else "local_ell"
-    )
-    hb = build_halo_batch(packed, k=2, edge_slack=8.0, blocked=blocked)
-    assert "pool_gl" in hb and "pool_row" in hb
-    if blocked == "local_slots":
-        assert hb["slot_spill"].shape[-1] == 0  # aligned ⇒ nothing spills
-    else:
-        assert hb["senders"].shape[-1] == hb["loc_ulocal"].shape[-1]
-    stacked = stack_halo_buckets([hb])
-    mesh = make_mesh(data=1, edge=2)
-    fwd = halo_forward(spec.forward, mesh, FLOAT32)
-    jaxpr = str(jax.make_jaxpr(fwd)(jparams, stacked))
-    assert jaxpr.count("pallas_call") == 1, (
-        f"{name}: megakernel not engaged under halo "
-        f"({jaxpr.count('pallas_call')} pallas calls)"
-    )
-    got = np.asarray(fwd(jparams, stacked))[0]
-    expected = np.asarray(
-        jax.jit(lambda p, b: spec.forward(p, b, FLOAT32))(
-            jparams,
-            as_batch(packed, blocked=blocked, window=PALLAS_ELL_WINDOW),
-        )
-    )
-    kk = packed.num_graphs
-    assert_allclose(got[:kk], expected[:kk], rtol=1e-5, atol=1e-5,
-                    msg=f"{name} halo megakernel")
-
-
-def _first_pallas_after_each_all_to_all_untainted(jaxpr) -> list[bool]:
-    """For every all_to_all in (nested) jaxprs: is the FIRST pallas_call
-    that follows it (same jaxpr, equation order = program order) free of
-    any data dependence on its output? True per all_to_all ⇒ XLA's
-    latency-hiding scheduler may overlap the collective with that kernel
-    (the same layer's window-local aggregation)."""
-    results = []
-
-    def walk(jx):
-        for i, eqn in enumerate(jx.eqns):
-            prim = eqn.primitive.name
-            if prim == "all_to_all":
-                # Literals are fresh objects — ids never collide with vars.
-                tainted = {id(v) for v in eqn.outvars}
-                verdict = None
-                for later in jx.eqns[i + 1 :]:
-                    dep = any(id(v) in tainted for v in later.invars)
-                    if later.primitive.name == "pallas_call":
-                        verdict = not dep
-                        break
-                    if dep:
-                        tainted.update(id(v) for v in later.outvars)
-                if verdict is not None:
-                    results.append(verdict)
-            for val in eqn.params.values():
-                if hasattr(val, "eqns"):  # raw Jaxpr (e.g. shard_map body)
-                    walk(val)
-                elif hasattr(val, "jaxpr") and hasattr(val.jaxpr, "eqns"):
-                    walk(val.jaxpr)  # ClosedJaxpr (e.g. pjit)
-
-    walk(jaxpr.jaxpr)
-    return results
-
-
-@pytest.mark.parametrize("name", ["gin", "gcn", "dgn", "gat", "pna"])
-def test_halo_overlap_independence(name, _interp, graphs16, reference_root):
-    """VERDICT r2 #3 / SURVEY §5: on a SPILLING halo batch (cross-chip
-    edges present) each layer's boundary-row all_to_all must have no data
-    edge into that layer's window-local Pallas kernel — the independence
-    that lets XLA overlap the collective with local aggregation, mapping
-    the reference's FIFO producer/consumer overlap
-    (GIN/src/conv_layer.cc:48-57)."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 fake devices")
-    spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
-    jparams = prepare_params(params, FLOAT32)
-    from flowgnn_tpu.core.synthetic import synthetic_molhiv
-
-    # 64 graphs over 4×512-row shards: graphs cross shard boundaries, so
-    # the layout spills and every layer exchanges boundary rows.
-    tg = registry.apply_transforms(
-        spec, synthetic_molhiv(64, seed=7, with_eigen=spec.needs_eigen)
-    )
-    caps = dict(node_capacity=2047, edge_capacity=8192, graph_capacity=80)
-    packed = pack_graphs(tg, with_eigen=spec.needs_eigen, **caps)
-    blocked = "local_slots" if name == "pna" else "local_ell"
-    hb = build_halo_batch(packed, k=4, edge_slack=8.0, blocked=blocked)
-    # Non-aligned packing must actually spill, or there is no exchange.
-    if blocked == "local_slots":
-        assert hb["slot_spill"].shape[-1] > 0
-    else:
-        assert hb["senders"].shape[-1] > hb["loc_ulocal"].shape[-1]
-    stacked = stack_halo_buckets([hb])
-    mesh = make_mesh(data=1, edge=4)
-    fwd = halo_forward(spec.forward, mesh, FLOAT32)
-    jaxpr = jax.make_jaxpr(fwd)(jparams, stacked)
-    verdicts = _first_pallas_after_each_all_to_all_untainted(jaxpr)
-    assert verdicts, f"{name}: no all_to_all→pallas pair found"
-    assert all(verdicts), (
-        f"{name}: a layer's local kernel depends on that layer's "
-        f"all_to_all — exchange cannot be overlapped ({verdicts})"
-    )
-
-
-@pytest.mark.parametrize("name", ["gin", "pna"])
-def test_halo_local_multiwindow_shard(name, _interp, graphs16, reference_root):
-    """Regression: shards spanning MORE than one ELL window (S = 2·W here)
-    must still agree with single-chip — the layout is built over S+1 local
-    rows while the kernels grid over S, and the trailing trash-row window's
-    pad lanes must be trimmed or every lane block mis-chunks (silent wrong
-    outputs, round-2 code review finding #1)."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 fake devices")
-    from flowgnn_tpu.core.synthetic import synthetic_molhiv
-
-    spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
-    jparams = prepare_params(params, FLOAT32)
-    tg = registry.apply_transforms(
-        spec, synthetic_molhiv(64, seed=7, with_eigen=spec.needs_eigen)
-    )
-    caps = dict(node_capacity=2047, edge_capacity=8192, graph_capacity=80)
-    packed = pack_graphs(tg, with_eigen=spec.needs_eigen, **caps)
-    blocked = "local_slots" if name == "pna" else "local_ell"
-    hb = build_halo_batch(packed, k=2, edge_slack=8.0, blocked=blocked)
-    s_rows = hb["node_feat"].shape[1]
-    assert s_rows == 1024  # two 512-row ELL windows per shard
-    # Real nodes must spill into the SECOND window of a shard, or the
-    # mis-chunk this test guards against has nothing to corrupt.
-    assert int(packed.n_node[:-1].sum()) > 512
-    stacked = stack_halo_buckets([hb])
-    mesh = make_mesh(data=1, edge=2)
-    fwd = halo_forward(spec.forward, mesh, FLOAT32)
-    got = np.asarray(fwd(jparams, stacked))[0]
-    expected = np.asarray(
-        jax.jit(lambda p, b: spec.forward(p, b, FLOAT32))(jparams, as_batch(packed))
-    )
-    kk = packed.num_graphs
-    assert_allclose(got[:kk], expected[:kk], rtol=1e-5, atol=1e-5,
-                    msg=f"{name} halo multi-window shard")
-
-
-def test_halo_batches_uniform_slot_stream(graphs16, reference_root, _interp):
-    """A data-axis stream of heterogeneous buckets must reconcile to ONE
-    halo-batch signature (stack_halo_buckets prerequisite) while staying
-    equivalent per bucket — the halo analog of as_batches_uniform
-    (used by dryrun_multichip's six-model megakernel rung)."""
-    from flowgnn_tpu.core.graphs import pack_graphs_aligned
-    from flowgnn_tpu.parallel.halo import halo_batches_uniform
-
-    spec = registry.get("gat")
-    params = spec.loader(os.path.join(reference_root, "GAT"))
-    jparams = prepare_params(params, FLOAT32)
-    tg = registry.apply_transforms(spec, graphs16[:8])
-    caps = dict(node_capacity=255, edge_capacity=512, graph_capacity=4)
-    buckets = [
-        pack_graphs_aligned(tg[2 * i : 2 * i + 2], window=128, **caps)
-        for i in range(4)
-    ]
-    hbs = halo_batches_uniform(
-        buckets, k=2, edge_slack=8.0, blocked="local_slots"
-    )
-    sigs = {
-        tuple(sorted((n, v.shape, str(v.dtype)) for n, v in hb.items()))
-        for hb in hbs
-    }
-    assert len(sigs) == 1
-    stacked = stack_halo_buckets(hbs)
-    mesh = make_mesh(data=4, edge=2)
-    fwd = halo_forward(spec.forward, mesh, FLOAT32)
-    out = np.asarray(fwd(jparams, stacked))
-    single = jax.jit(lambda p, b: spec.forward(p, b, FLOAT32))
-    for i, b in enumerate(buckets):
-        expect = np.asarray(single(jparams, as_batch(b)))
-        kk = b.num_graphs
-        assert_allclose(out[i][:kk], expect[:kk], rtol=1e-5, atol=1e-5,
-                        msg=f"uniform halo bucket {i}")

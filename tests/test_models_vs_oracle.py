@@ -1,18 +1,17 @@
-"""JAX packed models vs independent NumPy oracles, on real reference weights.
+"""JAX packed models vs independent NumPy oracles, on seeded weights.
 
 This is the automated version of the reference's manual golden-output
 comparison (SURVEY.md §4): for every model family, run the per-graph NumPy
 oracle and the packed/jitted JAX model on the same synthetic graphs with the
-actual committed reference weight binaries, and require per-graph agreement.
+same seeded weights at the published widths, and require per-graph
+agreement.
 """
-
-import os
 
 import jax
 import numpy as np
 import pytest
 
-from conftest import assert_allclose
+from conftest import assert_allclose, seeded_params
 from flowgnn_tpu.core.graphs import pack_graphs
 from flowgnn_tpu.models import registry
 from flowgnn_tpu.models.base import as_batch, prepare_params
@@ -24,9 +23,9 @@ CAPS = dict(node_capacity=1024, edge_capacity=4096, graph_capacity=32)
 ALL_MODELS = ["gin", "gin-vn", "gcn", "gat", "pna", "dgn"]
 
 
-def run_jax(name, graphs, reference_root, prec: Precision):
+def run_jax(name, graphs, prec: Precision):
     spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
+    params = seeded_params(name)
     tg = registry.apply_transforms(spec, graphs)
     packed = pack_graphs(tg, with_eigen=spec.needs_eigen, **CAPS)
     batch = as_batch(packed)
@@ -55,9 +54,9 @@ def run_oracle(name, graphs, params):
 
 
 @pytest.mark.parametrize("name", ALL_MODELS)
-def test_model_matches_oracle_f64(name, graphs16, reference_root):
+def test_model_matches_oracle_f64(name, graphs16):
     """Exactness: f64 JAX model vs f64 NumPy oracle — near machine precision."""
-    out, params = run_jax(name, graphs16, reference_root, FLOAT64)
+    out, params = run_jax(name, graphs16, FLOAT64)
     expected = run_oracle(name, graphs16, params)
     # DGN's directional derivative |m2 − eigw_sum·h|/abssum amplifies
     # reduction-order noise by near-cancellation; still ≤1e-6 in f64.
@@ -66,17 +65,17 @@ def test_model_matches_oracle_f64(name, graphs16, reference_root):
 
 
 @pytest.mark.parametrize("name", ALL_MODELS)
-def test_model_f32_drift(name, graphs16, reference_root):
+def test_model_f32_drift(name, graphs16):
     """f32 production path drifts from exact math only by reduction noise."""
-    out, params = run_jax(name, graphs16, reference_root, FLOAT32)
+    out, params = run_jax(name, graphs16, FLOAT32)
     expected = run_oracle(name, graphs16, params)
     assert_allclose(out, expected, rtol=2e-2, atol=1e-3, msg=name)
 
 
-def test_gin_eps_mode(graphs16, reference_root):
+def test_gin_eps_mode(graphs16):
     """fpga_eps=False must use the trained ε and change the result."""
     spec = registry.get("gin")
-    params = spec.loader(os.path.join(reference_root, "GIN"))
+    params = seeded_params("gin")
     assert np.any(params["eps"] != 0)
     packed = pack_graphs(graphs16, **CAPS)
     batch = as_batch(packed)

@@ -4,8 +4,8 @@ Spawns TWO real OS processes that form a ``jax.distributed`` CPU cluster
 (4 fake devices each), deal the bucket stream between themselves, run the
 halo-sharded step on their local data×edge meshes, and all-gather the
 predictions — asserted equal to the single-process forward. This is the
-same code path a TPU pod runs (initialize → shard_stream → local mesh →
-gather_results); only the backend differs.
+same code path a multi-host GPU cluster runs (initialize → shard_stream →
+local mesh → gather_results); only the backend differs.
 """
 
 from __future__ import annotations
@@ -16,23 +16,16 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 
 import jax
 
+from conftest import seeded_params
 from flowgnn_tpu.core.graphs import pack_graphs
 from flowgnn_tpu.core.numerics import FLOAT32
 from flowgnn_tpu.core.synthetic import synthetic_molhiv
 from flowgnn_tpu.models import registry
 from flowgnn_tpu.models.base import as_batch, prepare_params
 from flowgnn_tpu.parallel import multihost
-
-REFERENCE = os.environ.get("FLOWGNN_REFERENCE", "/root/reference")
-pytestmark = pytest.mark.skipif(
-    not os.path.isdir(os.path.join(REFERENCE, "GIN")),
-    reason="reference weights not mounted",
-)
-
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -60,6 +53,7 @@ def test_cli_multihost_two_processes_all_predictions(tmp_path):
     port = _free_port()
     env_base = {
         **os.environ,
+        "JAX_PLATFORMS": "cpu",
         "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
         "FLOWGNN_COORDINATOR": f"127.0.0.1:{port}",
         "FLOWGNN_NUM_PROCESSES": "2",
@@ -101,9 +95,7 @@ def test_cli_multihost_two_processes_all_predictions(tmp_path):
     from flowgnn_tpu.core.graphs import pack_dataset
 
     spec = registry.get("gin")
-    params = prepare_params(
-        spec.loader(os.path.join(REFERENCE, spec.reference_dir)), FLOAT32
-    )
+    params = prepare_params(seeded_params("gin"), FLOAT32)
     from flowgnn_tpu.core.graphs import auto_edge_capacity
 
     graphs = registry.apply_transforms(spec, synthetic_molhiv(20, seed=0))
@@ -125,6 +117,7 @@ def test_two_process_cluster_matches_single(tmp_path):
     port = _free_port()
     env_base = {
         **os.environ,
+        "JAX_PLATFORMS": "cpu",
         "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
         "FLOWGNN_COORDINATOR": f"127.0.0.1:{port}",
         "FLOWGNN_NUM_PROCESSES": "2",
@@ -148,9 +141,7 @@ def test_two_process_cluster_matches_single(tmp_path):
     # Ground truth: plain single-device forward per bucket, in the dealt
     # order (round-robin: host 0 → buckets 0,2; host 1 → buckets 1,3).
     spec = registry.get("gin")
-    params = prepare_params(
-        spec.loader(os.path.join(REFERENCE, spec.reference_dir)), FLOAT32
-    )
+    params = prepare_params(seeded_params("gin"), FLOAT32)
     graphs = registry.apply_transforms(spec, synthetic_molhiv(16, seed=11))
     caps = dict(node_capacity=256, edge_capacity=1024, graph_capacity=4)
     buckets = [pack_graphs(graphs[4 * i : 4 * i + 4], **caps) for i in range(4)]

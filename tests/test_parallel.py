@@ -2,16 +2,15 @@
 
 The framework's substitute for multi-host hardware testing (SURVEY.md §4):
 identical results from (a) one device, (b) 4-way data parallel, (c) 2×4
-data×edge sharding with ICI-collective message completion.
+data×edge sharding with collective message completion over the device
+interconnect.
 """
-
-import os
 
 import jax
 import numpy as np
 import pytest
 
-from conftest import assert_allclose
+from conftest import assert_allclose, seeded_params
 from flowgnn_tpu.core.graphs import pack_graphs
 from flowgnn_tpu.core.numerics import FLOAT32
 from flowgnn_tpu.models import registry
@@ -24,12 +23,11 @@ CAPS = dict(node_capacity=512, edge_capacity=2048, graph_capacity=16)
 
 @pytest.mark.parametrize("name", ["gin", "gcn", "gat", "pna", "dgn"])
 @pytest.mark.parametrize("data,edge", [(4, 1), (2, 4), (1, 8)])
-def test_sharded_equals_single(name, data, edge, graphs16, reference_root):
+def test_sharded_equals_single(name, data, edge, graphs16):
     if len(jax.devices()) < data * edge:
         pytest.skip("needs 8 fake devices")
     spec = registry.get(name)
-    params = spec.loader(os.path.join(reference_root, spec.reference_dir))
-    jparams = prepare_params(params, FLOAT32)
+    jparams = prepare_params(seeded_params(name), FLOAT32)
     tg = registry.apply_transforms(spec, graphs16)
 
     # data buckets of 4 graphs each (replicate buckets if data < 4).

@@ -1,5 +1,7 @@
 """Native C++ packer vs NumPy packer: byte-identical buckets."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -51,59 +53,14 @@ def test_native_dataset_pack(lib, graphs16):
     assert sum(int((b.n_node[:-1] > 0).sum()) for b in buckets) == 16
 
 
-@pytest.mark.parametrize("window,block,k", [(64, 64, None), (64, 32, 2),
-                                            (128, 96, None)])
-def test_native_local_ell_matches_numpy(lib, monkeypatch, graphs16,
-                                        window, block, k):
-    """fg_build_local_ell == the NumPy builder, lane for lane (incl. the
-    auto-k percentile and the spill order: crossing edges then per-window
-    overflow)."""
-    import os
-
-    from flowgnn_tpu.core.blocking import build_local_blocks_ell
-    from flowgnn_tpu.core.graphs import pack_graphs_aligned
-
-    packed = pack_graphs_aligned(graphs16, window=window, *CAPS)
-    n = packed.node_capacity + 1
-    monkeypatch.setenv("FLOWGNN_NO_NATIVE", "1")
-    want = build_local_blocks_ell(
-        packed.senders, packed.receivers, n, window=window, block=block,
-        k_blocks=k,
-    )
-    monkeypatch.delenv("FLOWGNN_NO_NATIVE")
-    got = native.build_local_ell_native(
-        packed.senders, packed.receivers, n, window, block, k,
-    )
-    assert got is not None
-    u_local, v_local, edge_perm, valid, spill_idx, k_native = got
-    assert k_native == want.k_blocks
-    np.testing.assert_array_equal(u_local, want.u_local)
-    np.testing.assert_array_equal(v_local, want.v_local)
-    np.testing.assert_array_equal(edge_perm, want.edge_perm)
-    np.testing.assert_array_equal(valid, want.valid)
-    np.testing.assert_array_equal(spill_idx, want.spill[: want.spill_count])
-
-
-def test_native_aligned_pack_byte_equal(graphs16):
-    """fg_pack_bucket_aligned == pack_graphs_aligned, byte for byte (the
-    pipelined host application's hot pack runs through it)."""
-    import numpy as np
-
-    from flowgnn_tpu.core.graphs import pack_graphs_aligned
-    from flowgnn_tpu.runtime.native import load_library, pack_bucket_native
-
-    if load_library() is None:
-        import pytest
-
-        pytest.skip("native toolchain unavailable")
-    caps = dict(node_capacity=511, edge_capacity=2048, graph_capacity=16)
-    for window in (128, 384):
-        want = pack_graphs_aligned(graphs16, window=window, **caps)
-        got, consumed = pack_bucket_native(graphs16, 511, 2048, 16,
-                                           window=window)
-        assert consumed == 16
-        for f in ("node_feat", "node_graph", "senders", "receivers",
-                  "edge_attr", "n_node", "n_edge"):
-            np.testing.assert_array_equal(
-                getattr(got, f), getattr(want, f), err_msg=f"{f} w{window}"
-            )
+def test_native_library_keyed_by_source_hash(lib, tmp_path, monkeypatch):
+    """The library's name carries a hash of packer.cc, so a library built
+    from other source (or copied in from elsewhere) is never picked up, and
+    it is built into the ignored _build/ directory."""
+    path = native.library_path()
+    assert os.path.dirname(path) == native._BUILD_DIR
+    assert os.path.exists(path)
+    src = tmp_path / "packer.cc"
+    src.write_bytes(open(native._SRC, "rb").read() + b"\n// changed\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    assert native.library_path() != path

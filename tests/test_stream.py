@@ -1,25 +1,17 @@
 """Weight-set streaming (reload_weights parity) tests."""
 
-import os
-
 import numpy as np
 import pytest
 
-from conftest import assert_allclose
+from conftest import assert_allclose, seeded_params
 from flowgnn_tpu.core.numerics import FLOAT32
 from flowgnn_tpu.models import registry
 from flowgnn_tpu.runtime.stream import InferenceStream
 
 
-@pytest.fixture(autouse=True)
-def _interpret_mode(monkeypatch):
-    # The stream now runs the Pallas kernel layouts (production path).
-    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
-
-
 @pytest.fixture(scope="module")
-def gin_param_sets(reference_root):
-    p0 = registry.get("gin").loader(os.path.join(reference_root, "GIN"))
+def gin_param_sets():
+    p0 = seeded_params("gin")
     p1 = {k: v * 0.5 if v.dtype.kind == "f" else v for k, v in p0.items()}
     return [p0, p1]
 
@@ -61,54 +53,28 @@ def test_stream_bad_set_raises(gin_param_sets, graphs16):
         list(stream.run([(graphs16[0], 7)]))
 
 
-def test_stream_runs_production_layout(gin_param_sets, reference_root,
-                                        graphs16):
-    """VERDICT r2 #8: the reload_weights analog must run the SAME
-    graph-local kernel layouts bench/cli showcase — window-aligned pack,
-    ELL lanes attached, megakernel-eligible (pool layout present, no
-    spill) — and match the plain path."""
+@pytest.mark.parametrize("name", ["gin", "gin-vn", "gat", "dgn"])
+def test_stream_matches_plain_forward(name, graphs16):
+    """The stream packs each bucket (natively where the graphs carry no
+    eigen/VN payload, else in NumPy), narrows the categorical features to
+    int8, and must predict what the jitted forward predicts on the same
+    graphs packed directly."""
     import jax
 
     from flowgnn_tpu.core.graphs import pack_graphs
     from flowgnn_tpu.models.base import as_batch, prepare_params
 
-    stream = InferenceStream("gin", gin_param_sets, FLOAT32,
-                             node_capacity=512, edge_capacity=2048,
-                             graph_capacity=16)
-    batch, n = stream._make_batch(
-        [registry.apply_transforms(stream.spec, [g])[0]
-         for g in graphs16[:8]]
-    )
-    # Round 5: window-fitting buckets take the dest-major slot layout
-    # (slot megakernel — no scatter matmul); the ELL layout remains the
-    # window-exceeding fallback.
-    assert "slot_meta" in batch and "slot_pstack" in batch
-    assert "pool_gl" in batch  # in-kernel finalize layout attached
-    assert not batch["slot_spill_mask"].any(), (
-        "aligned packing must leave no spill tail"
-    )
+    spec = registry.get(name)
+    params = seeded_params(name)
+    caps = dict(node_capacity=512, edge_capacity=2048, graph_capacity=16)
+    stream = InferenceStream(name, [params], FLOAT32, **caps)
     got = np.array(list(stream.run([(g, 0) for g in graphs16[:8]])))
-    spec = registry.get("gin")
-    jp = prepare_params(gin_param_sets[0], FLOAT32)
     tg = registry.apply_transforms(spec, graphs16[:8])
-    plain = jax.jit(lambda p, b: spec.forward(p, b, FLOAT32))(
-        jp, as_batch(pack_graphs(tg, node_capacity=512, edge_capacity=2048,
-                                 graph_capacity=16))
+    want = jax.jit(lambda p, b: spec.forward(p, b, FLOAT32))(
+        prepare_params(params, FLOAT32),
+        as_batch(pack_graphs(tg, with_eigen=spec.needs_eigen, **caps)),
     )
-    assert_allclose(got, np.asarray(plain)[:8, 0], rtol=1e-5, atol=1e-5)
-
-
-def test_stream_slot_model_layout(reference_root, graphs16):
-    """Slot-layout models stream through their production layout too."""
-    p0 = registry.get("gat").loader(os.path.join(reference_root, "GAT"))
-    stream = InferenceStream("gat", [p0], FLOAT32, node_capacity=512,
-                             edge_capacity=2048, graph_capacity=16)
-    batch, _ = stream._make_batch(
-        [registry.apply_transforms(stream.spec, [g])[0]
-         for g in graphs16[:8]]
-    )
-    assert "slot_src" in batch and "slot_stack" in batch
-    assert batch["slot_spill"].shape[-1] == 0
+    assert_allclose(got, np.asarray(want)[:8, 0], rtol=1e-5, atol=1e-5)
 
 
 def test_stream_pipelined_matches_sequential(gin_param_sets, graphs16):
